@@ -1,0 +1,176 @@
+"""The port stands alone and never falls back: it imports neither jax nor
+the JAX package, its entry points default to the CUDA device and raise
+without one, ``backend="cuda"`` refuses CPU tensors, and its kernels are
+built for sm_90a from a source the package ships."""
+import ast
+import fnmatch
+import subprocess
+import sys
+import tomllib
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import engine
+from repro_torch.core.statespec import StateSpec
+from repro_torch.graphs import path_graph
+from repro_torch.kernels.skipper_match import (
+    kernel,
+    skipper_match,
+    skipper_match_window,
+)
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+
+def test_import_loads_no_jax_and_no_reference():
+    script = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules\n"
+        "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.split()[-1]) >= 15
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_names_no_jax_and_no_reference(path):
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        skipper_match(path_graph(10))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        skipper_match(path_graph(10), device="cuda")
+
+
+def test_cuda_backend_refuses_cpu_tensors():
+    g = path_graph(40)
+    with pytest.raises(ValueError, match="backend='cuda'"):
+        skipper_match(g, device="cpu", backend="cuda")
+    u = torch.arange(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="backend='cuda'"):
+        skipper_match_window(u, u + 1, torch.zeros(16, dtype=torch.uint8),
+                             tile_size=8, backend="cuda")
+    rows = u.reshape(1, 8)
+    with pytest.raises(ValueError, match="backend='cuda'"):
+        engine.window_tier_pass(rows, rows, window=16, tiles_per_window=1,
+                                tile_size=8, vector_rounds=1, backend="cuda")
+    with pytest.raises(ValueError, match="unknown backend"):
+        skipper_match(g, device="cpu", backend="xla")
+
+
+def test_cpu_default_backend_is_plain():
+    kernel.reset_launch_counts()
+    r = skipper_match(path_graph(40), window=16, tile_size=8, device="cpu")
+    assert int(r.match_mask.sum()) == 20
+    assert kernel.launch_counts() == {kernel.WINDOW_TIER: 0,
+                                      kernel.BOUNDARY: 0}
+
+
+def test_nvcc_command_targets_sm90a_under_build():
+    out = kernel.library_path()
+    cmd = kernel.nvcc_command(kernel.SOURCE, out)
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert cmd[cmd.index("-o") + 1] == str(out)
+    assert out.parent == ROOT / "build" / "repro_torch"
+    assert "-shared" in cmd and str(kernel.SOURCE) == cmd[-1]
+    assert kernel.SOURCE.exists()
+
+
+def test_cuda_source_is_package_data():
+    cfg = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    patterns = cfg["tool"]["setuptools"]["package-data"]["repro_torch"]
+    rel = kernel.SOURCE.relative_to(PKG).as_posix()
+    assert any(fnmatch.fnmatch(rel, p) for p in patterns), (rel, patterns)
+
+
+def test_cuda_marker_registered():
+    cfg = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    markers = cfg["tool"]["pytest"]["ini_options"]["markers"]
+    assert any(m.startswith("cuda:") for m in markers)
+
+
+def test_shared_memory_budget():
+    """u8 state at the full-scale window fits one block; int32 does not,
+    and the wrapper must raise for it rather than fall back."""
+    u8 = kernel.window_tier_smem_bytes(65536, 256, StateSpec.u8())
+    i32 = kernel.window_tier_smem_bytes(65536, 256, StateSpec.legacy_i32())
+    assert u8 == 65536 + 9 * 256 <= kernel.MAX_SMEM_BYTES < i32
+    assert kernel.window_tier_smem_bytes(3, 4) == 4 + 36
+
+
+def test_launch_counts_reset():
+    kernel._LAUNCHES[kernel.WINDOW_TIER] += 3
+    assert kernel.launch_counts()[kernel.WINDOW_TIER] >= 3
+    kernel.reset_launch_counts()
+    assert set(kernel.launch_counts().values()) == {0}
+
+
+def test_chip_smoke_refuses_without_cuda_or_repo(tmp_path):
+    """Without a card, or copied away from the repository, chip_smoke.py
+    exits non-zero and prints no result."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    for script in (ROOT / "chip_smoke.py", alone):
+        proc = subprocess.run([sys.executable, str(script)],
+                              capture_output=True, text=True, timeout=300,
+                              cwd=script.parent)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout
+
+
+def test_statespec_dtype_table_matches_reference_names():
+    from repro_torch.core import statespec
+
+    assert statespec._DTYPES == {"uint8": torch.uint8, "int32": torch.int32}
+    assert StateSpec.legacy_i32().vmem_dtype == torch.int32
+    with pytest.raises(ValueError, match="overflows"):
+        StateSpec.u8().validate_rounds(256)
+    assert StateSpec.u8().validate_capacity(255)
+    assert not StateSpec.u8().validate_capacity(256)
+    with pytest.raises(ValueError):
+        StateSpec(vmem="int8")
+    assert np.dtype(str(StateSpec.u8().counter_dtype).split(".")[1]) == np.uint8
+
+
+def test_kernel_id_range_check():
+    """The check the wrappers run before a launch: padding is (-1, -1),
+    other ids lie in range."""
+    from repro_torch.kernels.skipper_match.kernel import _ids_ok
+
+    u = torch.tensor([[0, -1, 3]], dtype=torch.int32)
+    v = torch.tensor([[1, -1, 3]], dtype=torch.int32)
+    assert bool(_ids_ok(u, v, 4, 4))
+    assert not bool(_ids_ok(u, v, 3, 4))
+    assert not bool(_ids_ok(u, v, 4, 3))
+    assert not bool(_ids_ok(torch.tensor([0]), torch.tensor([-1]), 4, 4))
+    assert not bool(_ids_ok(torch.tensor([-2]), torch.tensor([-2]), 4, 4))
+    assert bool(_ids_ok(u[:, :0], v[:, :0], 1, 1))

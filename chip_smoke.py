@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's main path on one NVIDIA card.
+"""Drive the PyTorch + CUDA port's paths on one NVIDIA card.
 
 Run from the repository root, with no arguments, on a machine with one
 CUDA card:
@@ -9,15 +9,18 @@ CUDA card:
 Phases (any failure raises and exits non-zero):
 
 1. Identity: the card's name, and its name and power limit from nvidia-smi.
-2. Build: nvcc compiles ``src/repro_torch/kernels/skipper_match/csrc`` for
-   sm_90a; the build time and ptxas report are printed.
+2. Build: one nvcc for each kernel source (``skipper_match.cu``,
+   ``flash_attention.cu``), all started together, for sm_90a; the build
+   times and ptxas reports are printed.
 3. Kernel against plain version, on the card, bit for bit: both kernels,
    ``skipper_match`` and ``skipper_match_window`` against the plain PyTorch
    versions of ``ref.py`` on the same CUDA tensors, under
    ``StateSpec.u8()`` and ``legacy_i32()`` and ``vector_rounds`` 1 and 2,
    on small schedules (RMAT scale 14, the pinned odd shapes, all-boundary,
    same-block pairs, an empty global tier, a star, a path, and a stream
-   with duplicates and self-loops). Tolerance: exact equality.
+   with duplicates and self-loops). Tolerance: exact equality. On the
+   RMAT scale-14 schedule, ``skipper_match_window`` (the window-tier
+   kernel with one row) is also timed beside its plain version and bound.
 4. Full scale: Graph500 RMAT (scale 22, edge factor 16) with window 65536,
    tile 256, degree reordering, uint8 state, one vector round. The main
    path runs once with the launch counts reset just before it; then the
@@ -25,7 +28,27 @@ Phases (any failure raises and exits non-zero):
    held bit for bit against its plain version on the same inputs, and the
    result must pass ``check_matching``, the state-domain check and the
    greedy certificate.
-5. A ``{"kernels": [...]}`` line, the nvidia-smi line, and the last line
+5. Flash attention: the kernel against its plain online-softmax version
+   and against the model's chunked attention on the same CUDA inputs, in
+   f32 and bf16, at granite-moe-3b-a800m's attention widths (S 128, 1024,
+   4096, causal; one non-causal case) and at mixtral-8x7b's with its
+   sliding window; then its path, the ``flash_attention`` entry point at
+   granite's prefill_32k attention shape, once with the launch count reset
+   just before it, and the kernel, its plain version and
+   ``scaled_dot_product_attention`` timed there; the kernel is held against
+   its plain version at that shape too, in bf16 and in f32.
+6. Serving: ``repro_torch.launch.serve.serve`` on granite-moe-3b-a800m at
+   full width and depth (bf16, seeded weights, Skipper router), 8 requests
+   on 4 slots, prompts of 512, 32 new tokens, twice. The first run records
+   every ``bmatch_assign`` call and each prefill's and decode step's
+   logits; each call must equal the sequential greedy of its stream and
+   respect every budget, and the logits must be finite. The second run is
+   the timed one: it adds only a pair of CUDA events around each decode
+   step's ``bmatch_assign`` call, whose spans give the router's share of
+   the decode time; request 0's tokens must be the same in both. Eight
+   decode steps are then traced with ``torch.profiler`` for the device's
+   busy share and the kernels that take its time.
+7. A ``{"kernels": [...]}`` line, the nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when CUDA is unavailable or the
@@ -39,19 +62,25 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Tuple
 
 import numpy as np
 import torch
 
-# H100 SXM device-memory rate (NVIDIA data sheet), for the byte bound
+# H100 SXM device-memory rate and dense bf16 tensor-core rate (NVIDIA data
+# sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989e12
 REPLACES = {
     "skipper_window_tier_kernel":
         "src/repro/kernels/skipper_match/kernel.py:158",
     "skipper_boundary_kernel":
         "src/repro/kernels/skipper_match/kernel.py:196",
+    "flash_attention_kernel":
+        "src/repro/kernels/flash_attention/kernel.py:28",
 }
 SOURCE = "src/repro_torch/kernels/skipper_match/csrc/skipper_match.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 
 
 def log(*args) -> None:
@@ -293,8 +322,40 @@ def phase_small(dev):
                     worst["skipper_window_tier_kernel"], err_w, err_m)
                 worst["skipper_boundary_kernel"] = max(
                     worst["skipper_boundary_kernel"], err_b, err_m)
+        if label == "rmat14":
+            time_match_window(s, dev)
     log(f"phase 3 passed in {time.perf_counter() - t0:.1f} s")
     return worst
+
+
+def time_match_window(s, dev) -> None:
+    """``skipper_match_window`` (the window-tier kernel launched with one
+    row, the port of ``skipper_window_kernel``) on the schedule's first
+    row from an all-ACC state, u8, one vector round: launches on its path,
+    kernel and plain times, and the byte bound (ids in, state in and out,
+    matched and conflicts out)."""
+    from repro_torch.kernels.skipper_match import kernel, skipper_match_window
+
+    u, v = put(s.u_tiles[0], dev), put(s.v_tiles[0], dev)
+    st0 = torch.zeros(s.window, dtype=torch.uint8, device=dev)
+    kernel.reset_launch_counts()
+    skipper_match_window(u, v, st0, s.tile_size, 1)
+    torch.cuda.synchronize()
+    launches = kernel.launch_counts()["skipper_window_tier_kernel"]
+    require(launches == 1, f"skipper_match_window launched {launches}")
+    ms, got = cuda_time(lambda: skipper_match_window(
+        u, v, st0, s.tile_size, 1, backend="cuda"), reps=3)
+    plain_ms, want = cuda_time(lambda: skipper_match_window(
+        u, v, st0, s.tile_size, 1, backend="torch"))
+    err = max_err(*zip(got, want))
+    require(err == 0, "skipper_match_window: kernel and plain disagree")
+    nbytes = 8 * u.numel() + 2 * s.window + 2 * u.numel()
+    log("skipper_match_window metrics: " + json.dumps({
+        "schedule": f"rmat14 row 0, window {s.window}, "
+                    f"{s.tiles_per_window} tiles of {s.tile_size}",
+        "launches_on_path": launches, "kernel_ms": ms, "plain_ms": plain_ms,
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "max_abs_err": err}))
 
 
 def window_bytes(s, spec) -> int:
@@ -439,14 +500,419 @@ def phase_full(dev, seed: int, scale: int, worst):
          "plain_ms": times[name][1],
          "bound_ms": bounds[name] / HBM_BYTES_PER_S * 1e3,
          "bound_by": "bytes", "library_ms": None}
-        for name in REPLACES
+        for name in ("skipper_window_tier_kernel", "skipper_boundary_kernel")
     ]
+
+
+# ---------------------------------------------------------------- phase 5 --
+# Tolerances of the flash kernel against its plain version on the same
+# inputs: f32 2e-5 (both sum in f32, in other orders: FMA chains against
+# the f32 products of einsum with TF32 off; the JAX package's own kernel
+# test uses 2e-5); bf16 2e-2 (the JAX package's bf16 tolerance) and, element
+# by element, one bf16 step of the plain value plus 1e-6: both compute the
+# same f32 result to within about 1e-6 and round it to bf16 once, so they
+# may land one step apart, never two. Against the model's chunked
+# attention: f32 1e-4 (the JAX package's kernel-against-model tolerance);
+# bf16 6e-2, because the chunked form rounds q * scale and p to bf16 by
+# design (2^-9 relative each, on scores and outputs of magnitude up to
+# about 4: about 3e-2), where the kernel keeps both in f32, and each side
+# then rounds its output once.
+FLASH_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 6e-2)}
+BF16_STEP_FLOOR = 1e-6
+GRANITE_ATTN = dict(b=1, hq=24, hkv=8, d=64)
+MIXTRAL_ATTN = dict(b=1, hq=32, hkv=8, d=128)
+
+
+def flash_inputs(gen, b, hq, hkv, s, d, dtype, dev):
+    return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                 for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+
+
+def bf16_step(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 numbers just above |x| (2^(floor(log2|x|) - 7),
+    0 at 0), in f32."""
+    _, e = torch.frexp(x.float())
+    step = torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+    return torch.where(x == 0, 0.0, step)
+
+
+def compare_flash(got: torch.Tensor, plain: torch.Tensor) -> Tuple[float,
+                                                                   bool]:
+    """max |got - plain|, and whether it is within the stated tolerance:
+    2e-5 in f32; in bf16 2e-2 and, element by element, one bf16 step of
+    the plain value plus ``BF16_STEP_FLOOR``."""
+    diff = (got.float() - plain.float()).abs()
+    err = diff.max().item()
+    ok = err <= FLASH_TOL[got.dtype][0]
+    if got.dtype == torch.bfloat16:
+        ok &= bool((diff <= bf16_step(plain) + BF16_STEP_FLOOR).all())
+    return err, ok
+
+
+def flash_cases():
+    """(label, widths, S, causal, window) of phase 5."""
+    cases = [(f"granite S={s}", GRANITE_ATTN, s, True, 0)
+             for s in (128, 1024, 4096)]
+    cases.append(("granite S=1024 non-causal", GRANITE_ATTN, 1024, False, 0))
+    cases.append(("mixtral S=8192 window=4096", MIXTRAL_ATTN, 8192, True,
+                  4096))
+    return cases
+
+
+def flash_bound_ms(b, hq, hkv, s, d, itemsize) -> Tuple[float, str]:
+    """The larger of the causal flops (2*B*Hq*S^2*D: both products over half
+    the square) at the bf16 tensor-core rate and the bytes of q, k, v and o
+    at the memory rate."""
+    flops = 2 * b * hq * s * s * d
+    nbytes = itemsize * (2 * b * hq * s * d + 2 * b * hkv * s * d)
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_flash(dev, seed: int):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention, kernel
+    from repro_torch.kernels.flash_attention.ref import (
+        online_softmax_attention)
+    from repro_torch.models.layers import gqa_attention_chunked
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    worst = 0.0
+    t0 = time.perf_counter()
+    for label, w, s, causal, window in flash_cases():
+        for dtype in (torch.float32, torch.bfloat16):
+            tol_plain, tol_model = FLASH_TOL[dtype]
+            q, k, v = flash_inputs(gen, w["b"], w["hq"], w["hkv"], s, w["d"],
+                                   dtype, dev)
+            blk = min(128, s)
+            got = kernel.flash_attention_cuda(
+                q, k, v, causal=causal, window=window,
+                sm_scale=w["d"] ** -0.5, block_q=blk, block_k=blk)
+            plain = online_softmax_attention(q, k, v, block_q=blk,
+                                             block_k=blk, causal=causal,
+                                             window=window)
+            model = gqa_attention_chunked(
+                *(t.transpose(1, 2) for t in (q, k, v)), causal=causal,
+                window=window).transpose(1, 2)
+            torch.cuda.synchronize()
+            require(bool(torch.isfinite(got).all()), f"{label}: non-finite")
+            err, ok = compare_flash(got, plain)
+            err_model = (got.float() - model.float()).abs().max().item()
+            log(f"  flash {label:>28} {str(dtype)[6:]:>8}: kernel-plain "
+                f"{err:.3e} (tol {tol_plain}"
+                f"{', one bf16 step' if dtype == torch.bfloat16 else ''}), "
+                f"kernel-model {err_model:.3e} (tol {tol_model})")
+            require(ok and err_model <= tol_model,
+                    f"flash {label} {dtype}: kernel and plain version or "
+                    "model attention disagree")
+            worst = max(worst, err)
+            del q, k, v, got, plain, model
+
+    # the path: the entry point at granite's prefill_32k attention shape
+    w, s = GRANITE_ATTN, 32768
+    q, k, v = flash_inputs(gen, w["b"], w["hq"], w["hkv"], s, w["d"],
+                           torch.bfloat16, dev)
+    kernel.reset_launch_counts()
+    out = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    launches = kernel.launch_counts()[kernel.FLASH]
+    require(launches > 0, "flash_attention did not launch its kernel")
+    require(bool(torch.isfinite(out).all()), "prefill_32k: non-finite")
+    kw = dict(causal=True, window=0, sm_scale=w["d"] ** -0.5, block_q=128,
+              block_k=128)
+    ms, got = cuda_time(lambda: kernel.flash_attention_cuda(q, k, v, **kw),
+                        reps=3)
+    cuda_time(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))           # warm-up
+    lib_ms, lib = cuda_time(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), reps=3)
+    plain_ms, plain = cuda_time(lambda: online_softmax_attention(
+        q, k, v, block_q=128, block_k=128, causal=True))
+    err, ok = compare_flash(got, plain)
+    err_lib = (got.float() - lib.float()).abs().max().item()
+    require(ok, f"prefill_32k bf16: kernel and plain version disagree "
+            f"({err}, tolerance 2e-2 and one bf16 step)")
+    worst = max(worst, err)
+    bound, bound_by = flash_bound_ms(w["b"], w["hq"], w["hkv"], s, w["d"], 2)
+    del q, k, v, out, got, lib, plain
+    # the same shape in f32, held at 2e-5
+    q, k, v = flash_inputs(gen, w["b"], w["hq"], w["hkv"], s, w["d"],
+                           torch.float32, dev)
+    got = kernel.flash_attention_cuda(q, k, v, **kw)
+    plain = online_softmax_attention(q, k, v, block_q=128, block_k=128,
+                                     causal=True)
+    err_f32, ok = compare_flash(got, plain)
+    require(ok, f"prefill_32k f32: kernel and plain version disagree "
+            f"({err_f32}, tolerance 2e-5)")
+    worst = max(worst, err_f32)
+    del q, k, v, got, plain
+    # kernel and plain version beside each other at S = 4096
+    q, k, v = flash_inputs(gen, w["b"], w["hq"], w["hkv"], 4096, w["d"],
+                           torch.bfloat16, dev)
+    ms_4k, _ = cuda_time(lambda: kernel.flash_attention_cuda(q, k, v, **kw),
+                         reps=3)
+    plain_4k, _ = cuda_time(lambda: online_softmax_attention(
+        q, k, v, block_q=128, block_k=128, causal=True), reps=2)
+    del q, k, v
+    metrics = {
+        "shape": "B=1 S=32768 Hq=24 Hkv=8 D=64 causal bf16",
+        "kernel_ms": ms, "plain_ms": plain_ms, "sdpa_ms": lib_ms,
+        "bound_ms": bound, "bound_by": bound_by,
+        "kernel_vs_plain_err": err, "kernel_vs_plain_err_f32": err_f32,
+        "kernel_vs_sdpa_err": err_lib,
+        "kernel_ms_s4096": ms_4k, "plain_ms_s4096": plain_4k,
+        "launches_on_path": launches,
+        "seconds": time.perf_counter() - t0,
+    }
+    log("flash metrics: " + json.dumps(metrics))
+    return {"name": "flash_attention_kernel", "route": "cuda",
+            "source": FLASH_SOURCE,
+            "replaces": REPLACES["flash_attention_kernel"],
+            "launches": launches, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": lib_ms}
+
+
+# ---------------------------------------------------------------- phase 6 --
+def greedy_bmatch(tok, exp, n_tok, n_exp, budget, cap):
+    """Sequential greedy b-matching in stream order (numpy oracle)."""
+    used_t = np.zeros(n_tok, np.int64)
+    used_e = np.zeros(n_exp, np.int64)
+    out = np.zeros(len(tok), bool)
+    for i, (t, e) in enumerate(zip(tok.tolist(), exp.tolist())):
+        if t >= 0 and used_t[t] < budget and used_e[e] < cap:
+            out[i] = True
+            used_t[t] += 1
+            used_e[e] += 1
+    return out
+
+
+class Recorder:
+    """Test hook around the serving path: swaps ``moe.bmatch_assign`` and
+    the adapters' ``prefill_fn``/``decode_fn`` for wrappers that record
+    every b-matching call (its stream, budgets and accept mask) and whether
+    all logits were finite, and puts the originals back on exit."""
+
+    def __init__(self):
+        from repro_torch.launch import adapters
+        from repro_torch.models import moe
+
+        self.moe, self.adapters = moe, adapters
+        self.calls = []
+        self.finite = True
+        self.logit_calls = 0
+
+    def _bmatch(self, fn):
+        def wrapped(token_ids, expert_ids, **kw):
+            acc = fn(token_ids, expert_ids, **kw)
+            self.calls.append((token_ids.cpu().numpy(),
+                               expert_ids.cpu().numpy(), acc.cpu().numpy(),
+                               kw))
+            return acc
+        return wrapped
+
+    def _logits(self, fn):
+        def wrapped(*args, **kw):
+            logits, cache = fn(*args, **kw)
+            self.finite &= bool(torch.isfinite(logits).all())
+            self.logit_calls += 1
+            return logits, cache
+        return wrapped
+
+    def __enter__(self):
+        self.saved = (self.moe.bmatch_assign, self.adapters.prefill_fn,
+                      self.adapters.decode_fn)
+        self.moe.bmatch_assign = self._bmatch(self.saved[0])
+        self.adapters.prefill_fn = self._logits(self.saved[1])
+        self.adapters.decode_fn = self._logits(self.saved[2])
+        return self
+
+    def __exit__(self, *exc):
+        (self.moe.bmatch_assign, self.adapters.prefill_fn,
+         self.adapters.decode_fn) = self.saved
+        return False
+
+
+class BmatchTimer:
+    """Test hook for the timed serving run: swaps ``moe.bmatch_assign`` for
+    a wrapper that records a CUDA event before and after each decode-step
+    call (one token), with no sync and no copy (two event records a call
+    are its whole cost), and puts the original back on exit. ``seconds``
+    sums the device-timeline spans of the calls once the run has ended."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe = moe
+        self.events = []
+
+    def __enter__(self):
+        self.saved = self.moe.bmatch_assign
+
+        def wrapped(token_ids, expert_ids, **kw):
+            if kw["num_tokens"] != 1:
+                return self.saved(token_ids, expert_ids, **kw)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            acc = self.saved(token_ids, expert_ids, **kw)
+            end.record()
+            self.events.append((start, end))
+            return acc
+        self.moe.bmatch_assign = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.bmatch_assign = self.saved
+        return False
+
+    def seconds(self) -> float:
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events) / 1e3
+
+
+def profile_decode(arch: str, dev, seed: int, prompt_len: int,
+                   steps: int = 8) -> dict:
+    """Trace ``steps`` decode steps of one request with ``torch.profiler``
+    (the serve path's own steps on a model drawn as ``serve`` draws it):
+    the device's busy share of the traced wall time (the sum of kernel
+    times over it; the profiler's own host cost makes the idle share an
+    upper bound) and the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import adapters
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+
+    cfg = get_config(arch)
+    model = adapters.init_fn(torch.Generator(device=dev).manual_seed(seed),
+                             cfg)
+    prompt = torch.randint(3, cfg.vocab_size, (1, prompt_len),
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(seed), device=dev)
+    logits, cache = make_prefill_step(cfg)(model, {"tokens": prompt})
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    step = make_serve_step(cfg)
+    tok, cache = step(model, cache, tok)     # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tok, cache = step(model, cache, tok)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = []
+    for e in prof.key_averages():
+        # device-side events only (kernels, copies): an operator's own row
+        # repeats the device time of the kernels it launched
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            rows.append((dev_us, e.key, e.count))
+    rows.sort(reverse=True)
+    busy_us = sum(r[0] for r in rows)
+    del model, cache
+    if not rows:
+        log("profiler: no device time recorded; busy share not measured")
+        return {"profiled_decode_steps": steps, "device_busy_share": None}
+    return {
+        "profiled_decode_steps": steps,
+        "profiled_ms_per_step": wall_us / steps / 1e3,
+        "device_busy_share": busy_us / wall_us,
+        "device_ms_per_step": busy_us / steps / 1e3,
+        "top_device_kernels": [
+            {"name": k[:80], "ms_per_step": us / steps / 1e3,
+             "launches_per_step": n / steps} for us, k, n in rows[:8]],
+    }
+
+
+def phase_serve(dev, seed: int):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.launch.serve import serve
+
+    arch = "granite-moe-3b-a800m"
+    cfg = get_config(arch)
+    kw = dict(num_requests=8, slots=4, prompt_len=512, max_new=32,
+              seed=seed, device=dev)
+    t0 = time.perf_counter()
+    flash.reset_launch_counts()
+    with Recorder() as rec:
+        out1, st1 = serve(arch, False, **kw)
+    flash_launches = flash.launch_counts()[flash.FLASH]
+    require(rec.finite and rec.logit_calls > 0,
+            "serving: non-finite logits")
+    checked = 0
+    for tok, exp, acc, ckw in rec.calls:
+        want = greedy_bmatch(tok, exp, ckw["num_tokens"], ckw["num_experts"],
+                             ckw["token_budget"], ckw["expert_capacity"])
+        require(np.array_equal(acc, want),
+                f"bmatch_assign call {checked} differs from the sequential "
+                "greedy of its stream")
+        ok = acc & (tok >= 0)
+        require(np.bincount(tok[ok], minlength=ckw["num_tokens"]).max(
+                    initial=0) <= ckw["token_budget"]
+                and np.bincount(exp[ok], minlength=ckw["num_experts"]).max(
+                    initial=0) <= ckw["expert_capacity"],
+                f"bmatch_assign call {checked} over-fills a budget")
+        checked += 1
+    decode_calls = sum(c[3]["num_tokens"] == 1 for c in rec.calls)
+    log(f"serving run 1 (recorded): {checked} bmatch_assign calls equal "
+        f"the greedy oracle ({decode_calls} in decode steps), "
+        f"{rec.logit_calls} logits finite")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with BmatchTimer() as timer:
+        out2, st2 = serve(arch, False, **kw)
+    peak = torch.cuda.max_memory_allocated()
+    bmatch_decode_s = timer.seconds()
+    require(len(timer.events) > 0,
+            "timed run: no bmatch_assign call in a decode step")
+    require(out1[0] == out2[0], "serving: request 0 differs between runs")
+    require(all(len(v) == kw["max_new"] or v[-1] == 2 for v in out2.values()),
+            "serving: a request stopped early without EOS")
+    metrics = {
+        "arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "experts": cfg.num_experts, "top_k": cfg.num_experts_per_tok,
+        "router": cfg.moe_router, "dtype": cfg.dtype,
+        "requests": kw["num_requests"], "slots": kw["slots"],
+        "prompt_len": kw["prompt_len"], "max_new": kw["max_new"],
+        "prefill_ms_per_request": 1e3 * sum(st2["prefill_s"])
+        / len(st2["prefill_s"]),
+        "prefill_ms_each": [1e3 * x for x in st2["prefill_s"]],
+        "decode_tokens_per_s": st2["decoded"] / st2["decode_s"],
+        "decoded": st2["decoded"], "decode_s": st2["decode_s"],
+        "total_s": st2["total_s"], "peak_device_bytes": peak,
+        "bmatch_calls": checked,
+        "bmatch_share_of_decode": bmatch_decode_s / st2["decode_s"],
+        "bmatch_ms_per_decode_call": 1e3 * bmatch_decode_s
+        / len(timer.events),
+        "recorded_run_decode_s": st1["decode_s"],
+        "flash_launches_on_serving_path": flash_launches,
+        "request0_tokens": out2[0][:8],
+        "seconds": time.perf_counter() - t0,
+    }
+    metrics.update(profile_decode(arch, dev, seed, kw["prompt_len"]))
+    log("serving metrics: " + json.dumps(metrics))
+    log("flash_attention_kernel launches on the serving path: "
+        f"{flash_launches} (the model's attention is the plain chunked form, "
+        "as in the JAX package)")
+
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the full-scale RMAT graph")
+                    help="seed of the full-scale RMAT graph, the attention "
+                    "inputs and the served model's weights")
     ap.add_argument("--scale", type=int, default=22,
                     help="RMAT scale of the full-scale phase")
     args = ap.parse_args()
@@ -454,6 +920,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.skipper_match import kernel
 
     dev = torch.device("cuda")
@@ -464,12 +932,17 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
     log(smi)
 
-    info = kernel.build()
-    log(f"build: nvcc {info['seconds']:.1f} s -> {info['path']}")
-    log(info["log"].strip())
+    t0 = time.perf_counter()
+    built = _build.build(kernel.SOURCE, flash.SOURCE)
+    log(f"build: {time.perf_counter() - t0:.1f} s for {len(built)} sources")
+    for info in built.values():
+        log(f"  nvcc {info['seconds']:.1f} s -> {info['path']}")
+        log(info["log"].strip())
 
     worst = phase_small(dev)
     kernels = phase_full(dev, args.seed, args.scale, worst)
+    kernels.append(phase_flash(dev, args.seed))
+    phase_serve(dev, args.seed)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

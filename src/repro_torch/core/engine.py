@@ -1,5 +1,6 @@
-"""The shared first-claim engine, unit-capacity subset (port of
-``repro.core.engine``).
+"""The shared first-claim engine (port of ``repro.core.engine``): the
+unit-capacity rounds of the matcher and the capacitated first-K-claim
+rounds of the b-matching (``tile_pass_capacitated``).
 
 Every matcher enforces the paper's invariant (Alg. 1): every edge is decided
 (matched / dead) at the moment it is touched, and an edge is dead only if
@@ -34,6 +35,20 @@ Differences from the JAX reference, all value-preserving:
 
 State encoding is the paper's: ACC=0, MCHD=2. Comparisons use plain ints,
 so every ``StateSpec`` width computes the same values.
+
+The capacitated rule (reference ``engine.py:280``–``:306``, DESIGN.md §9)
+works on two independent id spaces (u side / v side, e.g. MoE tokens /
+experts) with per-side budgets:
+
+    room_s(w)  = cap_s - used_s[w]
+    free_i     = valid, undecided, room > 0 on BOTH sides
+    rank_s(i)  = #{ free j < i : side-s id of j == side-s id of i }
+    blocked_i  = rank_u(i) >= room_u(u_i)  or  rank_v(i) >= room_v(v_i)
+    commit_i   = free_i and not blocked_i
+
+``rank`` has three interchangeable forms, like ``blocked``: the triangular
+same-id matrix, the per-side claim sort and the vertex-indexed one-hot
+prefix.
 """
 from __future__ import annotations
 
@@ -47,6 +62,7 @@ ACC = 0
 MCHD = 2
 
 BlockedFn = Callable[[torch.Tensor], torch.Tensor]
+RankFn = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
 
 def share_matrix(u: torch.Tensor, v: torch.Tensor,
@@ -151,6 +167,147 @@ def first_claim_commit(
     return commit, blocked
 
 
+def first_k_claim_commit(
+    used_u: torch.Tensor,
+    used_v: torch.Tensor,
+    valid: torch.Tensor,
+    matched: torch.Tensor,
+    rank_fn: RankFn,
+    cap_u: int,
+    cap_v: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One capacitated first-claim round from the gathered per-edge used
+    counts (any integer width; widened to int32 here). Returns
+    ``(commit, blocked)``; within a round the commits on any vertex are the
+    free claimants of rank below its room, so none oversubscribes."""
+    room_u = cap_u - used_u.to(torch.int32)
+    room_v = cap_v - used_v.to(torch.int32)
+    free = valid & ~matched & (room_u > 0) & (room_v > 0)
+    rank_u, rank_v = rank_fn(free)
+    blocked = free & ((rank_u >= room_u) | (rank_v >= room_v))
+    commit = free & ~blocked
+    return commit, blocked
+
+
+def _side_rank_matrix(ids: torch.Tensor, valid: torch.Tensor):
+    """rank(free)[i] = #{free j < i with ids[j] == ids[i]} from the strictly
+    lower-triangular same-id matrix (O(T^2) compares)."""
+    t = ids.shape[0]
+    lower = torch.ones((t, t), dtype=torch.bool, device=ids.device).tril(-1)
+    mat = ((ids[:, None] == ids[None, :]) & lower & valid[None, :]
+           & valid[:, None])
+
+    def rank(free):
+        return (mat & free[None, :]).sum(dim=1, dtype=torch.int32)
+
+    return rank
+
+
+def _side_rank_sort(ids: torch.Tensor, valid: torch.Tensor, n: int):
+    """The same rank via one sort per tile: slots sorted by (id, edge
+    index); a round is then a gather and a cumsum (the exclusive prefix of
+    the free mask within the edge's id run). Same int32 key bound as
+    :func:`blocked_by_claim_sort`."""
+    t = ids.shape[0]
+    if (n + 1) * (t + 1) >= 2**31:
+        raise ValueError(
+            f"claim-sort int32 key overflow: n={n}, tile={t}; use "
+            "conflict_method='matrix' (or 'auto', which picks it)"
+        )
+    dev = ids.device
+    idx = torch.arange(t, dtype=torch.int32, device=dev)
+    masked = torch.where(valid, ids, n).to(torch.int32)
+    order = torch.argsort(masked * (t + 1) + idx, stable=True)
+    sids = masked[order].contiguous()
+    starts = torch.searchsorted(sids, sids)
+    pos = torch.zeros((t,), dtype=torch.long, device=dev).scatter_(
+        0, order, idx.long())
+
+    def rank(free):
+        fs = free[order].to(torch.int32)
+        excl = torch.cumsum(fs, 0, dtype=torch.int32) - fs
+        return (excl - excl[starts])[pos]
+
+    return rank
+
+
+def _side_rank_scatter(ids: torch.Tensor, valid: torch.Tensor, n: int):
+    """The same rank via a vertex-indexed [T, n] one-hot running prefix
+    (O(T*n) a round: for a tiny id space, e.g. the experts)."""
+    t = ids.shape[0]
+    onehot = (torch.arange(n, dtype=torch.int32, device=ids.device)[None, :]
+              == torch.where(valid, ids, n)[:, None])
+    col = torch.clamp(torch.where(valid, ids, 0), max=n - 1).long()
+
+    def rank(free):
+        claims = (onehot & free[:, None]).to(torch.int32)
+        pref = torch.cumsum(claims, 0, dtype=torch.int32) - claims
+        return pref.gather(1, col[:, None])[:, 0]
+
+    return rank
+
+
+_SIDE_RANKS = {
+    "matrix": lambda ids, valid, n: _side_rank_matrix(ids, valid),
+    "sort": _side_rank_sort,
+    "scatter": _side_rank_scatter,
+}
+
+
+def ranks_from_matrix(u: torch.Tensor, v: torch.Tensor,
+                      valid: torch.Tensor) -> RankFn:
+    """Capacitated twin of :func:`blocked_from_matrix`: per-side triangular
+    same-id matrices. ``rank_fn(free) -> (rank_u, rank_v)``."""
+    ru, rv = _side_rank_matrix(u, valid), _side_rank_matrix(v, valid)
+    return lambda free: (ru(free), rv(free))
+
+
+def ranks_by_claim_sort(u: torch.Tensor, v: torch.Tensor, valid: torch.Tensor,
+                        n_u: int, n_v: int) -> RankFn:
+    """Capacitated twin of :func:`blocked_by_claim_sort`: one sort per side
+    per tile."""
+    ru = _side_rank_sort(u, valid, n_u)
+    rv = _side_rank_sort(v, valid, n_v)
+    return lambda free: (ru(free), rv(free))
+
+
+def ranks_by_claim_scatter(u: torch.Tensor, v: torch.Tensor,
+                           valid: torch.Tensor, n_u: int, n_v: int) -> RankFn:
+    """Capacitated twin of :func:`blocked_by_claim_scatter`: the one-hot
+    prefix on both sides."""
+    ru = _side_rank_scatter(u, valid, n_u)
+    rv = _side_rank_scatter(v, valid, n_v)
+    return lambda free: (ru(free), rv(free))
+
+
+def capacitated_rank_fn(u: torch.Tensor, v: torch.Tensor, valid: torch.Tensor,
+                        n_u: int, n_v: int, method: str = "auto") -> RankFn:
+    """The per-side rank function for :func:`first_k_claim_commit`.
+
+    ``"auto"`` picks per side, by the reference's rule: the one-hot prefix
+    for a tiny id space, claim-sort while its int32 key fits, the matrix
+    beyond. ``"matrix"`` / ``"sort"`` / ``"scatter"`` force one form on
+    both sides. All compute the same function."""
+    t = u.shape[0]
+
+    def pick(n):
+        if n <= max(64, t // 8):
+            return "scatter"
+        if (n + 1) * (t + 1) < 2**31:
+            return "sort"
+        return "matrix"
+
+    if method == "auto":
+        mu, mv = pick(n_u), pick(n_v)
+    elif method in _SIDE_RANKS:
+        mu = mv = method
+    else:
+        raise ValueError(f"unknown conflict_method {method!r}")
+    ru = _SIDE_RANKS[mu](u, valid, n_u)
+    rv = _SIDE_RANKS[mv](v, valid, n_v)
+    return lambda free: (ru(free), rv(free))
+
+
 def run_first_claim_rounds(
     u: torch.Tensor,
     v: torch.Tensor,
@@ -158,22 +315,42 @@ def run_first_claim_rounds(
     read_state: Callable[[], Tuple[torch.Tensor, torch.Tensor]],
     apply_commits: Callable[[torch.Tensor], None],
     vector_rounds: int,
-    blocked_fn: Optional[BlockedFn] = None,
+    blocked_fn=None,
+    capacities: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The unrolled round loop over one tile (unit capacity).
+    """The unrolled round loop over one tile.
 
-    ``read_state() -> (state[u], state[v])`` and ``apply_commits(commit)``
-    close over the caller's state. Returns ``(matched bool[T], conflicts
-    int32[T])``: commits over the rounds and the per-edge count of rounds
-    spent blocked."""
+    ``read_state() -> (a, b)`` gathers the per-edge endpoint values
+    (``state[u], state[v]`` at unit capacity, the used counts
+    ``used_u[u], used_v[v]`` with ``capacities=(cap_u, cap_v)``) and
+    ``apply_commits(commit)`` writes a round's commits back; both close over
+    the caller's state. ``blocked_fn`` is a ``blocked_*`` function at unit
+    capacity (default: the share matrix) and a rank function
+    (:func:`capacitated_rank_fn`) with capacities, where it is required.
+    Returns ``(matched bool[T], conflicts int32[T])``: commits over the
+    rounds and the per-edge count of rounds spent blocked."""
     t = u.shape[0]
-    if blocked_fn is None:
-        blocked_fn = blocked_from_matrix(share_matrix(u, v, valid))
+    if capacities is None:
+        if blocked_fn is None:
+            blocked_fn = blocked_from_matrix(share_matrix(u, v, valid))
+
+        def commit_round(a, b, matched):
+            return first_claim_commit(a, b, valid, matched, blocked_fn)
+    else:
+        if blocked_fn is None:
+            raise ValueError(
+                "capacitated rounds need a rank_fn (capacitated_rank_fn)")
+        cap_u, cap_v = capacities
+
+        def commit_round(a, b, matched):
+            return first_k_claim_commit(a, b, valid, matched, blocked_fn,
+                                        cap_u, cap_v)
+
     matched = torch.zeros((t,), dtype=torch.bool, device=u.device)
     conflicts = torch.zeros((t,), dtype=torch.int32, device=u.device)
     for _ in range(vector_rounds):
         a, b = read_state()
-        commit, blocked = first_claim_commit(a, b, valid, matched, blocked_fn)
+        commit, blocked = commit_round(a, b, matched)
         apply_commits(commit)
         matched = matched | commit
         conflicts = conflicts + blocked.to(torch.int32)
@@ -186,26 +363,43 @@ def greedy_fallback_rounds(
     v: torch.Tensor,
     valid: torch.Tensor,
     matched: torch.Tensor,
-    blocked_fn: BlockedFn,
+    blocked_fn,
     *,
     gather,
     scatter,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    capacities: Optional[Tuple[int, int]] = None,
+) -> Tuple[object, torch.Tensor, torch.Tensor]:
     """Exact cleanup: iterate first-claim rounds until the tile has no free
     edge. The fixpoint is the sequential index-order greedy over the tile's
-    remaining edges (reference docstring, ``engine.py:579``). Returns
+    remaining edges (reference docstring, ``engine.py:579``), at unit
+    capacity and with ``capacities=(cap_u, cap_v)`` alike. Returns
     ``(state, matched, fallback_taken)``, the last a CPU bool tensor (the
     loop reads it on the host anyway); ``gather(state) -> (a, b)`` and
-    ``scatter(state, commit) -> state``."""
+    ``scatter(state, commit) -> state``. ``state`` is the vertex-state
+    array at unit capacity, the ``(used_u, used_v)`` pair with
+    capacities."""
+    if capacities is None:
 
-    def free_mask(a, b, matched):
-        return valid & ~matched & (a == ACC) & (b == ACC)
+        def free_mask(a, b, matched):
+            return valid & ~matched & (a == ACC) & (b == ACC)
+
+        def commit_round(a, b, matched):
+            return first_claim_commit(a, b, valid, matched, blocked_fn)
+    else:
+        cap_u, cap_v = capacities
+
+        def free_mask(a, b, matched):
+            return valid & ~matched & (a < cap_u) & (b < cap_v)
+
+        def commit_round(a, b, matched):
+            return first_k_claim_commit(a, b, valid, matched, blocked_fn,
+                                        cap_u, cap_v)
 
     a, b = gather(state)
     taken = bool(free_mask(a, b, matched).any())
     go = taken
     while go:
-        commit, _blocked = first_claim_commit(a, b, valid, matched, blocked_fn)
+        commit, _blocked = commit_round(a, b, matched)
         state = scatter(state, commit)
         matched = matched | commit
         a, b = gather(state)
@@ -330,6 +524,75 @@ def tile_pass_pair(
     state_rows[blk_v] = pair[window:]
     state_rows[blk_u] = pair[:window]
     return state_rows, matched, conflicts, taken
+
+
+def tile_pass_capacitated(
+    used_u: torch.Tensor,
+    used_v: torch.Tensor,
+    u: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    cap_u: int,
+    cap_v: int,
+    vector_rounds: int,
+    fallback: bool = True,
+    conflict_method: str = "auto",
+    spec: Optional[StateSpec] = None,
+) -> Tuple[Tuple[torch.Tensor, torch.Tensor], torch.Tensor, torch.Tensor,
+           torch.Tensor]:
+    """Capacitated twin of :func:`tile_pass`: one edge tile against the
+    per-side used counts ``used_u`` [n_u] and ``used_v`` [n_v] (any integer
+    width that holds the budgets) with budgets ``cap_u`` and ``cap_v``.
+
+    u, v: int32[T] per-side ids, ``-1`` padding (valid is
+    ``(u >= 0) & (v >= 0)``; the sides are independent id spaces, so no
+    ``u != v`` check). The used counts are not changed in place.
+
+    Returns ``((used_u, used_v), matched bool[T], conflicts[T],
+    fallback_taken)``. Rounds plus fallback reach the sequential index-order
+    greedy b-matching of the tile, so a loop over tiles carrying the used
+    counts is the sequential greedy over the whole stream."""
+    valid = (u >= 0) & (v >= 0)
+    n_u, n_v = used_u.shape[0], used_v.shape[0]
+    rank_fn = capacitated_rank_fn(u, v, valid, n_u, n_v, conflict_method)
+    ug = torch.where(valid, u, 0).long()
+    vg = torch.where(valid, v, 0).long()
+    one = torch.ones(u.shape, dtype=torch.int32, device=u.device)
+
+    def gather(st):
+        return st[0][ug], st[1][vg]
+
+    def added(used, ids, commit, n):
+        # reference: .at[where(commit, ids, n)].add(1, mode="drop"); slot n
+        # of an int32 hit count is the drop slot
+        hits = torch.zeros((n + 1,), dtype=torch.int32, device=ids.device)
+        hits.scatter_add_(0, torch.where(commit, ids, n).long(), one)
+        return used + hits[:n].to(used.dtype)
+
+    def scatter(st, commit):
+        return added(st[0], u, commit, n_u), added(st[1], v, commit, n_v)
+
+    cell = [(used_u, used_v)]
+
+    def read_state():
+        return gather(cell[0])
+
+    def apply_commits(commit):
+        cell[0] = scatter(cell[0], commit)
+
+    matched, conflicts = run_first_claim_rounds(
+        u, v, valid, read_state, apply_commits, vector_rounds, rank_fn,
+        capacities=(cap_u, cap_v))
+    state = cell[0]
+    if spec is not None:
+        spec.validate_rounds(vector_rounds)
+        conflicts = conflicts.to(spec.counter_dtype)
+    if not fallback:
+        return state, matched, conflicts, torch.tensor(False)
+    state, matched, taken = greedy_fallback_rounds(
+        state, u, v, valid, matched, rank_fn, gather=gather, scatter=scatter,
+        capacities=(cap_u, cap_v))
+    return state, matched, conflicts, taken
 
 
 def window_tier_pass(

@@ -1,10 +1,8 @@
 """Build, load and launch the two hand-written skipper_match CUDA kernels.
 
-``csrc/skipper_match.cu`` holds the kernels with a plain C interface. At
-first use it is compiled by ``nvcc`` for ``sm_90a`` into
-``build/repro_torch/`` at the repository root and loaded with ``ctypes``;
-each process builds at most once, and a library whose name carries the
-source's hash is reused.
+``csrc/skipper_match.cu`` holds the kernels with a plain C interface; it is
+built and loaded through ``kernels/_build.py`` (nvcc for ``sm_90a`` into
+``build/repro_torch/``, ``ctypes``).
 
 Wrappers:
 
@@ -22,24 +20,17 @@ count each time it launches the kernel.
 from __future__ import annotations
 
 import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core.statespec import StateSpec, resolve as resolve_spec
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import MAX_SMEM_BYTES
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "skipper_match.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
 
-#: shared memory one block may use on Hopper (H100 / H200)
-MAX_SMEM_BYTES = 232_448
 MAX_THREADS = 1024
 
 WINDOW_TIER = "skipper_window_tier_kernel"
@@ -61,45 +52,7 @@ def reset_launch_counts() -> None:
         _LAUNCHES[name] = 0
 
 
-def nvcc_command(source: Path, output: Path) -> List[str]:
-    """The nvcc command line that builds ``source`` into ``output``."""
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    return [
-        nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
-        "-o", str(output), str(source),
-    ]
-
-
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"libskipper_match_{digest}.so"
-
-
-def build() -> Dict[str, object]:
-    """Compile the kernels unless this source's library exists. Returns
-    ``{"path", "seconds", "log"}`` (``seconds`` 0.0 and ``log`` empty when
-    the library was already there). Raises ``RuntimeError`` if nvcc fails."""
-    out = library_path()
-    if out.exists():
-        return {"path": str(out), "seconds": 0.0, "log": ""}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run(nvcc_command(SOURCE, tmp), capture_output=True,
-                          text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return {"path": str(out), "seconds": seconds,
-            "log": proc.stdout + proc.stderr}
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build()["path"])
+def _declare(lib: ctypes.CDLL) -> None:
     for s in ("uint8", "int32"):
         for c in ("uint8", "int32"):
             fn = getattr(lib, f"skipper_window_tier_{s}_{c}")
@@ -110,7 +63,10 @@ def _library() -> ctypes.CDLL:
             fn.restype = _I
     lib.skipper_error_string.argtypes = [_I]
     lib.skipper_error_string.restype = ctypes.c_char_p
-    return lib
+
+
+def _library() -> ctypes.CDLL:
+    return _build.load(SOURCE, _declare)
 
 
 def _check_launch(name: str, err: int) -> None:

@@ -31,21 +31,12 @@ from repro_torch.core.validate import (
     check_state_domain,
     first_offender,
 )
+from repro_torch.device import resolve_device
 from repro_torch.graphs.types import EdgeList
 from repro_torch.graphs.windows import WindowSchedule, build_window_schedule
 from repro_torch.kernels.skipper_match import kernel, ref
 
 BACKENDS = ("cuda", "torch")
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` -> ``"cuda"``; a CUDA device without CUDA raises."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: skipper_match runs on the card unless "
-            "device='cpu' is passed")
-    return device
 
 
 def resolve_backend(backend: Optional[str], device: torch.device) -> str:
@@ -144,7 +135,7 @@ def skipper_match(
         raise ValueError(
             "verify=True needs the original edge list — pass edges even "
             "when a prebuilt schedule is given")
-    dev = resolve_device(device)
+    dev = resolve_device(device, "cuda", "skipper_match")
     backend = resolve_backend(backend, dev)
     spec = resolve_spec(spec)
     if schedule is None:

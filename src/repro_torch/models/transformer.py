@@ -1,0 +1,267 @@
+"""Decoder-only transformer LM, families ``dense`` (llama / qwen) and
+``moe`` (mixtral / granite) (port of ``repro.models.transformer``).
+
+``Transformer`` is an ``nn.Module`` with one ``Block`` per layer; each
+block keeps its weights in ``nn.ParameterDict``s under the reference's
+names and layouts (``attn.wq`` is ``[D, Hq*hd]``, ``mlp.experts_gate`` is
+``[E, D, F]``, ...), so the reference's stacked ``[L, ...]`` leaf ``i`` is
+block ``i``'s parameter (``interop.params_from_arrays``).
+
+Three entry points, as in the reference:
+
+* ``forward(tokens)``         -> logits ``[B, S, V]``
+* ``prefill(tokens, max_len)`` -> ``(logits, cache)``, the KV cache filled;
+  a rolling window-sized cache when ``cfg.sliding_window > 0``
+* ``decode_step(cache, tokens)`` -> ``(logits [B, 1, V], cache)``
+
+The cache is ``{"k", "v": [L, B, W, Hkv, hd], "pos": int32[W], "cur": int}``.
+``decode_step`` writes the new k/v and position into the cache it is
+given, **in place** (the reference returns a new cache), and returns it
+with ``cur`` advanced. Attention runs the plain chunked
+``layers.gqa_attention_chunked``, as the reference's model does; the flash
+kernel is reached through its own entry point. Serving needs no remat, and
+the port runs it under ``torch.no_grad()``.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.moe import dtype_of, init_moe_mlp, moe_mlp
+
+FAMILIES = ("dense", "moe")
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def _params(tensors: Dict[str, torch.Tensor]) -> nn.ParameterDict:
+    return nn.ParameterDict({k: _param(v) for k, v in tensors.items()})
+
+
+class Block(nn.Module):
+    """One layer: pre-norm attention and pre-norm MLP (dense or MoE)."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator):
+        super().__init__()
+        dt, device = dtype_of(cfg), gen.device
+        d, hq, hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+        hd = cfg.resolved_head_dim
+
+        def dense(shape, fan_in):
+            return L.dense_init(gen, shape, fan_in, dt)
+
+        attn = {
+            "wq": dense((d, hq * hd), d),
+            "wk": dense((d, hkv * hd), d),
+            "wv": dense((d, hkv * hd), d),
+            "wo": dense((hq * hd, d), hq * hd),
+        }
+        if cfg.qkv_bias:
+            for name, width in (("bq", hq), ("bk", hkv), ("bv", hkv)):
+                attn[name] = torch.zeros((width * hd,), dtype=dt,
+                                         device=device)
+        if cfg.num_experts > 0:
+            mlp = init_moe_mlp(gen, cfg)
+        else:
+            mlp = {
+                "w_gate": dense((d, cfg.d_ff), d),
+                "w_up": dense((d, cfg.d_ff), d),
+                "w_down": dense((cfg.d_ff, d), cfg.d_ff),
+            }
+        self.attn = _params(attn)
+        self.mlp = _params(mlp)
+        self.norm1 = _param(torch.zeros((d,), dtype=dt, device=device))
+        self.norm2 = _param(torch.zeros((d,), dtype=dt, device=device))
+
+
+def _qkv(x, p, cfg: ModelConfig):
+    b, s, _ = x.shape
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = x @ p["wq"].to(x.dtype)
+    k = x @ p["wk"].to(x.dtype)
+    v = x @ p["wv"].to(x.dtype)
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    return (q.reshape(b, s, hq, hd), k.reshape(b, s, hkv, hd),
+            v.reshape(b, s, hkv, hd))
+
+
+def _attn_train(x, p, cfg: ModelConfig, cos, sin):
+    b, s, _ = x.shape
+    q, k, v = _qkv(x, p, cfg)
+    q = L.apply_rotary(q, cos, sin)
+    k = L.apply_rotary(k, cos, sin)
+    out = L.gqa_attention_chunked(q, k, v, causal=True,
+                                  window=cfg.sliding_window)
+    return out.reshape(b, s, -1) @ p["wo"].to(x.dtype), k, v
+
+
+def _attn_decode(x, p, cfg: ModelConfig, cos, sin, k_cache, v_cache,
+                 cache_pos, cur: int):
+    """x [B, 1, D]; writes this token's k/v into slot ``cur % W`` of
+    ``k_cache``/``v_cache`` [B, W, Hkv, hd] in place."""
+    b = x.shape[0]
+    q, k, v = _qkv(x, p, cfg)
+    q = L.apply_rotary(q, cos, sin)
+    k = L.apply_rotary(k, cos, sin)
+    slot = cur % k_cache.shape[1]
+    k_cache[:, slot] = k[:, 0]
+    v_cache[:, slot] = v[:, 0]
+    out = L.gqa_attention_decode(q, k_cache, v_cache, cache_pos, cur,
+                                 window=cfg.sliding_window)
+    return out.reshape(b, 1, -1) @ p["wo"].to(x.dtype)
+
+
+def _mlp(x, p, cfg: ModelConfig):
+    if cfg.num_experts > 0:
+        return moe_mlp(x, p, cfg)
+    return L.gated_mlp(x, p["w_gate"], p["w_up"], p["w_down"], act=cfg.act)
+
+
+def cache_window(cfg: ModelConfig, max_len: int) -> int:
+    """Cache length: rolling window-sized for sliding-window archs."""
+    if cfg.sliding_window > 0:
+        return min(max_len, cfg.sliding_window)
+    return max_len
+
+
+class Transformer(nn.Module):
+    """Decoder-only LM of the ``dense`` and ``moe`` families.
+
+    ``gen`` draws every weight on its own device, one tensor at a time in
+    f32 and then cast to ``cfg.dtype`` (the model never exists whole in
+    f32); norms and biases start at zero, as in the reference."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator):
+        super().__init__()
+        if cfg.family not in FAMILIES:
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, "
+                "item 12)")
+        if cfg.mrope_sections:
+            raise NotImplementedError("M-RoPE (the vlm family) is not ported")
+        self.cfg = cfg
+        dt = dtype_of(cfg)
+        d = cfg.d_model
+        self.embed = _param(L.dense_init(gen, (cfg.vocab_size, d), d, dt))
+        self.blocks = nn.ModuleList(Block(cfg, gen)
+                                    for _ in range(cfg.num_layers))
+        self.final_norm = _param(torch.zeros((d,), dtype=dt,
+                                             device=gen.device))
+        if not cfg.tie_embeddings:
+            self.lm_head = _param(L.dense_init(gen, (d, cfg.vocab_size), d,
+                                               dt))
+
+    # ---------------------------------------------------------------- util
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def _rope(self, positions):
+        return L.rope_cos_sin(positions, self.cfg.resolved_head_dim,
+                              self.cfg.rope_theta)
+
+    def _logits(self, x):
+        x = L.rms_norm(x, self.final_norm)
+        if self.cfg.tie_embeddings:
+            return L.lm_head(x, self.embed, transpose=True)
+        return L.lm_head(x, self.lm_head)
+
+    def _embed(self, tokens):
+        return self.embed.to(dtype_of(self.cfg))[tokens.long()]
+
+    # ------------------------------------------------------------- forward
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Full-sequence forward: tokens [B, S] -> logits [B, S, V]."""
+        x = self._embed(tokens)
+        b, s, _ = x.shape
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device).expand(b, s)
+        cos, sin = self._rope(positions)
+        for blk in self.blocks:
+            h, _, _ = _attn_train(L.rms_norm(x, blk.norm1), blk.attn,
+                                  self.cfg, cos, sin)
+            x = x + h
+            x = x + _mlp(L.rms_norm(x, blk.norm2), blk.mlp, self.cfg)
+        return self._logits(x)
+
+    # --------------------------------------------------------------- cache
+    def init_cache(self, batch: int, max_len: int) -> Dict[str, object]:
+        cfg = self.cfg
+        w = cache_window(cfg, max_len)
+        shape = (cfg.num_layers, batch, w, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        dt, dev = dtype_of(cfg), self.device
+        return {
+            "k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev),
+            "pos": torch.full((w,), -1, dtype=torch.int32, device=dev),
+            "cur": 0,
+        }
+
+    def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Dict[str, object]]:
+        """Forward pass that also fills the KV cache. With ``s >= w`` the
+        cache keeps the last ``w`` positions in the rolling layout (slot
+        ``pos % w``); otherwise positions ``0..s-1`` and empty slots."""
+        x = self._embed(tokens)
+        b, s, _ = x.shape
+        w = cache_window(self.cfg, max_len or s)
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device).expand(b, s)
+        cos, sin = self._rope(positions)
+        ks, vs = [], []
+        for blk in self.blocks:
+            h, k, v = _attn_train(L.rms_norm(x, blk.norm1), blk.attn,
+                                  self.cfg, cos, sin)
+            x = x + h
+            x = x + _mlp(L.rms_norm(x, blk.norm2), blk.mlp, self.cfg)
+            if s >= w:
+                shift = (s - w) % w
+                k = torch.roll(k[:, s - w:], shift, dims=1)
+                v = torch.roll(v[:, s - w:], shift, dims=1)
+            else:
+                pad = (0, 0, 0, 0, 0, w - s)
+                k = torch.nn.functional.pad(k, pad)
+                v = torch.nn.functional.pad(v, pad)
+            ks.append(k)
+            vs.append(v)
+        logits = self._logits(x)
+        idx = torch.arange(w, dtype=torch.int32, device=x.device)
+        if s >= w:
+            start = s - w
+            pos = start + torch.remainder(idx - start, w)
+        else:
+            pos = torch.where(idx < s, idx, -1)
+        cache = {"k": torch.stack(ks), "v": torch.stack(vs),
+                 "pos": pos.to(torch.int32), "cur": s}
+        return logits, cache
+
+    def decode_step(self, cache: Dict[str, object], tokens: torch.Tensor
+                    ) -> Tuple[torch.Tensor, Dict[str, object]]:
+        """One token [B, 1] against the cache (updated in place). Returns
+        ``(logits [B, 1, V], cache)`` with ``cache["cur"]`` advanced."""
+        x = self._embed(tokens)
+        b = x.shape[0]
+        cur = int(cache["cur"])
+        positions = torch.full((b, 1), cur, dtype=torch.int32,
+                               device=x.device)
+        cos, sin = self._rope(positions)
+        w = cache["k"].shape[2]
+        cache["pos"][cur % w] = cur
+        for i, blk in enumerate(self.blocks):
+            h = _attn_decode(L.rms_norm(x, blk.norm1), blk.attn, self.cfg,
+                             cos, sin, cache["k"][i], cache["v"][i],
+                             cache["pos"], cur)
+            x = x + h
+            x = x + _mlp(L.rms_norm(x, blk.norm2), blk.mlp, self.cfg)
+        cache["cur"] = cur + 1
+        return self._logits(x), cache

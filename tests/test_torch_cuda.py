@@ -1,6 +1,8 @@
-"""The CUDA kernels against their plain PyTorch versions on the card, bit
-for bit. Marked ``cuda``: each test skips without a card. This file
-imports no jax, so it runs on a machine that has only PyTorch:
+"""The CUDA kernels against their plain PyTorch versions on the card: the
+matcher's bit for bit, flash attention within the stated tolerances; and
+the serving path on the card. Marked ``cuda``: each test skips without a
+card. This file imports no jax, so it runs on a machine that has only
+PyTorch:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
 """
@@ -111,3 +113,83 @@ def test_kernels_reject_out_of_range_ids(cuda_device):
     st0 = torch.zeros((1, 32), dtype=torch.uint8, device=cuda_device)
     with pytest.raises(ValueError, match="out of range"):
         kernel.window_tier(u, u + 1, st0, tile_size=64)
+
+
+# ------------------------------------------------------- flash attention --
+# Tolerances as in chip_smoke.py: f32 2e-5 (sums in other orders), bf16
+# 2e-2 (each side rounds one f32 result to bf16).
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window,blk", [
+    (2, 4, 2, 256, 64, True, 0, 64),
+    (1, 8, 1, 256, 128, False, 0, 128),
+    (1, 6, 3, 384, 80, True, 100, 128),
+    (1, 4, 2, 256, 64, False, 48, 32),
+])
+def test_flash_kernel_equal_plain(cuda_device, dtype, b, hq, hkv, s, d,
+                                  causal, window, blk):
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, online_softmax_attention)
+
+    gen = torch.Generator(device=cuda_device).manual_seed(s + d)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+               for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+    got = flash_attention(q, k, v, causal=causal, window=window, block_q=blk,
+                          block_k=blk)
+    want = online_softmax_attention(q, k, v, block_q=blk, block_k=blk,
+                                    causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= FLASH_TOL[dtype], err
+
+
+@pytest.mark.cuda
+def test_flash_launch_count_and_bad_shapes(cuda_device):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import kernel as flash
+
+    q = torch.randn((1, 2, 128, 64), device=cuda_device)
+    flash.reset_launch_counts()
+    flash_attention(q, q, q)
+    flash_attention(q.cpu(), q.cpu(), q.cpu())
+    assert flash.launch_counts() == {flash.FLASH: 1}
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q[..., :32], q[..., :32], q[..., :32])
+    odd = torch.randn((1, 2, 12, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        flash_attention(odd, odd, odd)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = q.transpose(2, 3).contiguous().transpose(2, 3)
+        flash_attention(t, q, q)
+    assert flash.launch_counts() == {flash.FLASH: 1}
+
+
+@pytest.mark.cuda
+def test_bmatch_on_card_equals_cpu(cuda_device):
+    from repro_torch.core.bipartite import bmatch_assign
+
+    rng = np.random.default_rng(1)
+    tok = torch.from_numpy(rng.integers(-1, 300, 3000).astype(np.int32))
+    exp = torch.from_numpy(rng.integers(0, 40, 3000).astype(np.int32))
+    kw = dict(num_tokens=300, num_experts=40, token_budget=8,
+              expert_capacity=80, tile_size=512, with_stats=True)
+    got, gs = bmatch_assign(tok.to(cuda_device), exp.to(cuda_device), **kw)
+    want, ws = bmatch_assign(tok, exp, **kw)
+    assert torch.equal(got.cpu(), want)
+    assert int(gs["conflicts"]) == int(ws["conflicts"])
+
+
+@pytest.mark.cuda
+def test_smoke_serve_on_card(cuda_device):
+    from repro_torch.launch.serve import serve
+
+    kw = dict(num_requests=3, slots=2, prompt_len=24, max_new=4,
+              device=cuda_device)
+    out1, stats = serve("granite-moe-3b-a800m", True, **kw)
+    out2, _ = serve("granite-moe-3b-a800m", True, **kw)
+    assert out1 == out2 and sorted(out1) == [0, 1, 2]
+    assert stats["decoded"] == sum(len(v) for v in out1.values())

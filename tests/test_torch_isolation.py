@@ -1,7 +1,7 @@
 """The port stands alone and never falls back: it imports neither jax nor
 the JAX package, its entry points default to the CUDA device and raise
 without one, ``backend="cuda"`` refuses CPU tensors, and its kernels are
-built for sm_90a from a source the package ships."""
+built for sm_90a from sources the package ships."""
 import ast
 import fnmatch
 import subprocess
@@ -15,7 +15,10 @@ import torch
 
 from repro_torch.core import engine
 from repro_torch.core.statespec import StateSpec
+from repro_torch.device import resolve_device
 from repro_torch.graphs import path_graph
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.skipper_match import (
     kernel,
     skipper_match,
@@ -69,6 +72,33 @@ def test_default_device_raises_without_cuda(monkeypatch):
         skipper_match(path_graph(10), device="cuda")
 
 
+@pytest.mark.parametrize("default", ["cpu", "cuda"])
+def test_resolve_device_default_and_refusal(monkeypatch, default):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert resolve_device("cpu", default, "f") == torch.device("cpu")
+    if default == "cpu":
+        assert resolve_device(None, default, "f") == torch.device("cpu")
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device: f runs"):
+            resolve_device(None, default, "f")
+
+
+def test_load_declares_each_library_once(monkeypatch, tmp_path):
+    """``_build.load`` is the one cache of loaded libraries: a second load
+    of a source returns the same library without declaring it again."""
+    import ctypes.util
+
+    libc = ctypes.util.find_library("c")
+    monkeypatch.setattr(_build, "build", lambda source: {
+        str(source): {"path": libc}})
+    source = tmp_path / "k.cu"
+    declared = []
+    first = _build.load(source, declared.append)
+    assert _build.load(source, declared.append) is first
+    assert declared == [first]
+    _build.load.cache_clear()
+
+
 def test_cuda_backend_refuses_cpu_tensors():
     g = path_graph(40)
     with pytest.raises(ValueError, match="backend='cuda'"):
@@ -93,21 +123,38 @@ def test_cpu_default_backend_is_plain():
                                       kernel.BOUNDARY: 0}
 
 
-def test_nvcc_command_targets_sm90a_under_build():
-    out = kernel.library_path()
-    cmd = kernel.nvcc_command(kernel.SOURCE, out)
+def _check_nvcc_command(source):
+    out = _build.library_path(source)
+    cmd = _build.nvcc_command(source, out)
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert cmd[cmd.index("-o") + 1] == str(out)
     assert out.parent == ROOT / "build" / "repro_torch"
-    assert "-shared" in cmd and str(kernel.SOURCE) == cmd[-1]
-    assert kernel.SOURCE.exists()
+    assert out.name.startswith(f"lib{source.stem}_")
+    assert "-shared" in cmd and str(source) == cmd[-1]
+    assert source.exists()
+
+
+def _check_package_data(source):
+    cfg = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    patterns = cfg["tool"]["setuptools"]["package-data"]["repro_torch"]
+    rel = source.relative_to(PKG).as_posix()
+    assert any(fnmatch.fnmatch(rel, p) for p in patterns), (rel, patterns)
+
+
+def test_nvcc_command_targets_sm90a_under_build():
+    _check_nvcc_command(kernel.SOURCE)
+
+
+def test_flash_nvcc_command_targets_sm90a_under_build():
+    _check_nvcc_command(flash_kernel.SOURCE)
 
 
 def test_cuda_source_is_package_data():
-    cfg = tomllib.loads((ROOT / "pyproject.toml").read_text())
-    patterns = cfg["tool"]["setuptools"]["package-data"]["repro_torch"]
-    rel = kernel.SOURCE.relative_to(PKG).as_posix()
-    assert any(fnmatch.fnmatch(rel, p) for p in patterns), (rel, patterns)
+    _check_package_data(kernel.SOURCE)
+
+
+def test_flash_cuda_source_is_package_data():
+    _check_package_data(flash_kernel.SOURCE)
 
 
 def test_cuda_marker_registered():

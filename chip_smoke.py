@@ -10,8 +10,9 @@ Phases (any failure raises and exits non-zero):
 
 1. Identity: the card's name, and its name and power limit from nvidia-smi.
 2. Build: one nvcc for each kernel source (``skipper_match.cu``,
-   ``flash_attention.cu``), all started together, for sm_90a; the build
-   times and ptxas reports are printed.
+   ``flash_attention.cu``, and the analyzer's canaries ``mutants.cu``),
+   all started together, for sm_90a, then their PTX the same way; the
+   build times and ptxas reports are printed.
 3. Kernel against plain version, on the card, bit for bit: both kernels,
    ``skipper_match`` and ``skipper_match_window`` against the plain PyTorch
    versions of ``ref.py`` on the same CUDA tensors, under
@@ -28,6 +29,16 @@ Phases (any failure raises and exits non-zero):
    held bit for bit against its plain version on the same inputs, and the
    result must pass ``check_matching``, the state-domain check and the
    greedy certificate.
+4a. Analysis: the port's kernel conformance analyzer
+   (``repro_torch.analysis``) over ``src/repro_torch`` and every target
+   (each template instance of the three production kernels, and the
+   ``skipper_match``, ``flash_attention`` and serving decode-step entry
+   points) must report no ERROR; each mutation canary must be caught by
+   its named rule; the two canaries with plain versions
+   (``swapped_writeback``, ``dynamic_gather``) must equal them bit for bit
+   on the canonical schedule's global tier, where all three are timed. A
+   JSON line gives the findings by rule and severity and each kernel's
+   registers, shared memory and stack.
 5. Flash attention: the kernel against its plain online-softmax version
    and against the model's chunked attention on the same CUDA inputs, in
    f32 and bf16, at granite-moe-3b-a800m's attention widths (S 128, 1024,
@@ -48,7 +59,8 @@ Phases (any failure raises and exits non-zero):
    the decode time; request 0's tokens must be the same in both. Eight
    decode steps are then traced with ``torch.profiler`` for the device's
    busy share and the kernels that take its time.
-7. A ``{"kernels": [...]}`` line, the nvidia-smi line, and the last line
+7. A ``{"kernels": [...]}`` line (the canaries with ``"status":
+   "canary"``), the nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when CUDA is unavailable or the
@@ -67,10 +79,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-# H100 SXM device-memory rate and dense bf16 tensor-core rate (NVIDIA data
-# sheet), for the bounds
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS_PER_S = 989e12
+ROOT = Path(__file__).resolve().parent
 REPLACES = {
     "skipper_window_tier_kernel":
         "src/repro/kernels/skipper_match/kernel.py:158",
@@ -81,6 +90,7 @@ REPLACES = {
 }
 SOURCE = "src/repro_torch/kernels/skipper_match/csrc/skipper_match.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+MUTANT_SOURCE = "src/repro_torch/analysis/csrc/mutants.cu"
 
 
 def log(*args) -> None:
@@ -335,6 +345,7 @@ def time_match_window(s, dev) -> None:
     kernel and plain times, and the byte bound (ids in, state in and out,
     matched and conflicts out)."""
     from repro_torch.kernels.skipper_match import kernel, skipper_match_window
+    from repro_torch.roofline import h100
 
     u, v = put(s.u_tiles[0], dev), put(s.v_tiles[0], dev)
     st0 = torch.zeros(s.window, dtype=torch.uint8, device=dev)
@@ -354,21 +365,8 @@ def time_match_window(s, dev) -> None:
         "schedule": f"rmat14 row 0, window {s.window}, "
                     f"{s.tiles_per_window} tiles of {s.tile_size}",
         "launches_on_path": launches, "kernel_ms": ms, "plain_ms": plain_ms,
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "bound_ms": h100.bytes_ms(nbytes), "bound_by": "bytes",
         "max_abs_err": err}))
-
-
-def window_bytes(s, spec) -> int:
-    slots = s.u_tiles.size
-    state = s.num_rows * s.window * spec.vmem_bytes
-    return 8 * slots + 2 * state + 2 * spec.counter_bytes * slots
-
-
-def boundary_bytes(s, spec) -> int:
-    slots = s.num_boundary_padded
-    state = s.num_windows * s.window * spec.vmem_bytes
-    return (8 * s.num_boundary_tiles + 8 * slots + 2 * state
-            + 2 * spec.counter_bytes * slots)
 
 
 def phase_full(dev, seed: int, scale: int, worst):
@@ -376,6 +374,7 @@ def phase_full(dev, seed: int, scale: int, worst):
     from repro_torch.core.statespec import StateSpec
     from repro_torch.graphs import build_window_schedule, rmat_graph
     from repro_torch.kernels.skipper_match import kernel, ref, skipper_match
+    from repro_torch.roofline import h100
 
     spec = StateSpec.u8()
     window, tile, vr = 65536, 256, 1
@@ -488,8 +487,8 @@ def phase_full(dev, seed: int, scale: int, worst):
     log("bound_ms counts the bytes each kernel must move at 3.35 TB/s; the "
         "serial chain of tiles in one block, not bytes, limits both today")
     bounds = {
-        "skipper_window_tier_kernel": window_bytes(s, spec),
-        "skipper_boundary_kernel": boundary_bytes(s, spec),
+        "skipper_window_tier_kernel": h100.window_bytes(s, spec),
+        "skipper_boundary_kernel": h100.boundary_bytes(s, spec),
     }
     times = {"skipper_window_tier_kernel": (w_ms, wp_ms),
              "skipper_boundary_kernel": (b_ms, bp_ms)}
@@ -498,10 +497,113 @@ def phase_full(dev, seed: int, scale: int, worst):
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": worst[name], "ms": times[name][0],
          "plain_ms": times[name][1],
-         "bound_ms": bounds[name] / HBM_BYTES_PER_S * 1e3,
+         "bound_ms": h100.bytes_ms(bounds[name]),
          "bound_by": "bytes", "library_ms": None}
         for name in ("skipper_window_tier_kernel", "skipper_boundary_kernel")
     ]
+
+
+# --------------------------------------------------------------- phase 4a --
+def phase_analysis(dev):
+    """The analyzer over the tree and every target, then each canary; the
+    canaries' entries of the kernels line."""
+    from repro_torch.analysis import analyze_mutation, mutations, run_analysis
+    from repro_torch.analysis import targets as atargets
+    from repro_torch.analysis.report import Severity
+    from repro_torch.analysis.runner import caught
+    from repro_torch.core.statespec import DEFAULT
+    from repro_torch.kernels.skipper_match import ref
+    from repro_torch.roofline import h100
+
+    t0 = time.perf_counter()
+    report = run_analysis(paths=[str(ROOT / "src" / "repro_torch")])
+    tree_s = time.perf_counter() - t0
+    by_rule = {}
+    for f in report.findings:
+        by_rule.setdefault(f.rule, {}).setdefault(f.severity.value, 0)
+        by_rule[f.rule][f.severity.value] += 1
+    for f in report.findings:
+        if f.severity is not Severity.INFO:
+            log("  " + f.render())
+    require(report.clean, f"analysis: {len(report.errors)} ERROR finding(s) "
+            "on the production tree")
+
+    # each kernel's registers, shared memory and stack, from the findings
+    facts = {}
+    keys = {"registers": "registers", "smem-budget": "bytes",
+            "local-memory": "stack_frame"}
+
+    def read_facts(rep):
+        for f in rep.findings:
+            if f.rule in keys and f.data:
+                facts.setdefault(f.where, {})[f.rule] = f.data[keys[f.rule]]
+
+    read_facts(report)
+    t1 = time.perf_counter()
+    mutations.reset_launch_counts()
+    caught_by = {}
+    for name in mutations.MUTATION_NAMES:
+        r = analyze_mutation(name)
+        read_facts(r)
+        caught_by[name] = sorted({f.rule for f in r.errors})
+        log(f"  mutation {name}: ERROR from {caught_by[name]} "
+            f"(expected {mutations.EXPECTED_RULE[name]})")
+        require(caught(name, r), f"mutation {name} was not caught by "
+                f"{mutations.EXPECTED_RULE[name]}: the analyzer lost its "
+                "teeth")
+    launches = mutations.launch_counts()
+    mutations_s = time.perf_counter() - t1
+    require(all(n > 0 for n in launches.values()),
+            f"a canary was not launched on the analyzer's path: {launches}")
+
+    # the canaries on the canonical schedule: against their plain versions,
+    # and timed beside them
+    s = atargets.canonical_schedule(1)
+    x = tier_inputs(s, dev)
+    state0 = torch.zeros((s.num_rows, s.window), dtype=DEFAULT.vmem_dtype,
+                         device=dev)
+    rows, _, _ = ref.ref_window_tier(x["u2"], x["v2"], state0,
+                                     tile_size=s.tile_size, spec=DEFAULT)
+    flat = torch.zeros((s.num_windows, s.window), dtype=DEFAULT.vmem_dtype,
+                       device=dev)
+    flat[x["rows"]] = rows
+    targs = (x["blk_u"], x["blk_v"], x["bu"], x["bv"])
+    entries, errs = [], {}
+    for name, m in mutations.KERNEL_MUTATIONS.items():
+        if m.role == "window":
+            def run(fn, name=name):
+                return fn(name, x["u2"], x["v2"], state0,
+                          tile_size=s.tile_size)
+            bound = h100.window_bytes(s, DEFAULT)
+        else:
+            def run(fn, name=name):
+                st = flat.clone()
+                return (st, *fn(name, st, *targs))
+            bound = h100.boundary_bytes(s, DEFAULT)
+        launch = (mutations.window_tier if m.role == "window"
+                  else mutations.boundary_tier)
+        ms, got = cuda_time(lambda: run(launch), reps=3)
+        plain_ms, want = cuda_time(lambda: run(mutations.plain))
+        errs[name] = max_err(*zip(got, want))
+        if name != "dropped_dma_wait":
+            require(errs[name] == 0, f"canary {name} differs from its plain "
+                    f"version (max_abs_err {errs[name]})")
+        entries.append({
+            "name": m.kernel, "route": "cuda", "source": MUTANT_SOURCE,
+            "replaces": m.replaces, "status": "canary",
+            "launches": launches[m.kernel], "max_abs_err": errs[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": h100.bytes_ms(bound),
+            "bound_by": "bytes", "library_ms": None})
+    log("analysis: " + json.dumps({
+        "findings": by_rule, "targets": len(report.targets_analyzed),
+        "files": report.files_analyzed, "caught_by": caught_by,
+        "canary_launches": launches,
+        "canary_max_abs_err_vs_plain": errs,
+        "kernels": facts, "tree_s": tree_s, "mutations_s": mutations_s,
+        "seconds": time.perf_counter() - t0}))
+    log("dropped_dma_wait races by design: its max_abs_err is against the "
+        "production plain version and may be 0 in a run")
+    return entries
 
 
 # ---------------------------------------------------------------- phase 5 --
@@ -559,17 +661,6 @@ def flash_cases():
     return cases
 
 
-def flash_bound_ms(b, hq, hkv, s, d, itemsize) -> Tuple[float, str]:
-    """The larger of the causal flops (2*B*Hq*S^2*D: both products over half
-    the square) at the bf16 tensor-core rate and the bytes of q, k, v and o
-    at the memory rate."""
-    flops = 2 * b * hq * s * s * d
-    nbytes = itemsize * (2 * b * hq * s * d + 2 * b * hkv * s * d)
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
 def phase_flash(dev, seed: int):
     import torch.nn.functional as F
 
@@ -577,6 +668,7 @@ def phase_flash(dev, seed: int):
     from repro_torch.kernels.flash_attention.ref import (
         online_softmax_attention)
     from repro_torch.models.layers import gqa_attention_chunked
+    from repro_torch.roofline import h100
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -637,7 +729,8 @@ def phase_flash(dev, seed: int):
     require(ok, f"prefill_32k bf16: kernel and plain version disagree "
             f"({err}, tolerance 2e-2 and one bf16 step)")
     worst = max(worst, err)
-    bound, bound_by = flash_bound_ms(w["b"], w["hq"], w["hkv"], s, w["d"], 2)
+    bound, bound_by = h100.flash_bound_ms(w["b"], w["hq"], w["hkv"], s,
+                                          w["d"], 2)
     del q, k, v, out, got, lib, plain
     # the same shape in f32, held at 2e-5
     q, k, v = flash_inputs(gen, w["b"], w["hq"], w["hkv"], s, w["d"],
@@ -919,7 +1012,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.analysis import mutations
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.skipper_match import kernel
@@ -933,14 +1027,22 @@ def main() -> int:
     log(smi)
 
     t0 = time.perf_counter()
-    built = _build.build(kernel.SOURCE, flash.SOURCE)
+    sources = (kernel.SOURCE, flash.SOURCE, mutations.SOURCE)
+    built = _build.build(*sources)
     log(f"build: {time.perf_counter() - t0:.1f} s for {len(built)} sources")
     for info in built.values():
         log(f"  nvcc {info['seconds']:.1f} s -> {info['path']}")
         log(info["log"].strip())
+    t0 = time.perf_counter()
+    for info in _build.build(*sources, ptx=True).values():
+        log(f"  nvcc -ptx {info['seconds']:.1f} s -> {info['path']}")
+    log(f"ptx: {time.perf_counter() - t0:.1f} s")
 
     worst = phase_small(dev)
     kernels = phase_full(dev, args.seed, args.scale, worst)
+    # after phase 4: the analyzer's serving census leaves cuBLAS's
+    # workspace allocated, which phase 4's peak device memory would count
+    kernels += phase_analysis(dev)
     kernels.append(phase_flash(dev, args.seed))
     phase_serve(dev, args.seed)
     log(json.dumps({"kernels": kernels}))

@@ -83,7 +83,7 @@ def bmatch_assign(
         )
         matched.append(mt)
         conflicts.append(cf)
-        taken.append(bool(fb))
+        taken.append(bool(fb))  # host-sync: ok — fb is a CPU flag, no wait
     if num_tiles:
         accept = torch.cat(matched)[:m]
     else:

@@ -180,8 +180,8 @@ def first_k_claim_commit(
     counts (any integer width; widened to int32 here). Returns
     ``(commit, blocked)``; within a round the commits on any vertex are the
     free claimants of rank below its room, so none oversubscribes."""
-    room_u = cap_u - used_u.to(torch.int32)
-    room_v = cap_v - used_v.to(torch.int32)
+    room_u = cap_u - used_u.to(torch.int32)  # state-dtype: ok — accum math
+    room_v = cap_v - used_v.to(torch.int32)  # state-dtype: ok — accum math
     free = valid & ~matched & (room_u > 0) & (room_v > 0)
     rank_u, rank_v = rank_fn(free)
     blocked = free & ((rank_u >= room_u) | (rank_v >= room_v))
@@ -396,14 +396,15 @@ def greedy_fallback_rounds(
                                         cap_u, cap_v)
 
     a, b = gather(state)
-    taken = bool(free_mask(a, b, matched).any())
+    # the loop's test waits for the card once a round (PERF.md section 5)
+    taken = bool(free_mask(a, b, matched).any())  # host-sync: ok — loop test
     go = taken
     while go:
         commit, _blocked = commit_round(a, b, matched)
         state = scatter(state, commit)
         matched = matched | commit
         a, b = gather(state)
-        go = bool(free_mask(a, b, matched).any())
+        go = bool(free_mask(a, b, matched).any())  # host-sync: ok — loop
     return state, matched, torch.tensor(taken)
 
 

@@ -16,8 +16,9 @@ from repro_torch.graphs.types import EdgeList
 def sgmm(edges: EdgeList) -> MatchResult:
     """Sequential greedy matching over the edge stream (CPU tensors out)."""
     n = edges.num_vertices
-    u, v = (a.tolist() for a in edges.canonical().to_numpy())
-    state = np.full((n,), ACC, np.uint8)
+    # the sequential oracle walks the stream on the host
+    u, v = (a.tolist() for a in edges.canonical().to_numpy())  # host-sync: ok
+    state = np.full((n,), ACC, np.uint8)  # state-dtype: ok — at-rest byte
     mask = np.zeros((len(u),), bool)
     for i, (a, b) in enumerate(zip(u, v)):
         if a != b and a >= 0 and state[a] == ACC and state[b] == ACC:

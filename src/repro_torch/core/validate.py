@@ -70,7 +70,8 @@ def first_offender(edges: EdgeList, match_mask) -> str:
     e = edges.canonical()
     u, v = (a.astype(np.int64) for a in e.to_numpy())
     n = e.num_vertices
-    mask = np.asarray(torch.as_tensor(match_mask).cpu(), bool)
+    mask = torch.as_tensor(match_mask).cpu()  # host-sync: ok — error path
+    mask = np.asarray(mask, bool)
     valid = (u != v) & (u >= 0) & (v < n)
     covered = np.zeros(n, bool)
     for i in np.flatnonzero(mask & valid):
@@ -92,7 +93,8 @@ def assert_matching(edges: EdgeList, match_mask: torch.Tensor,
                     label: str = "") -> Dict[str, int]:
     """Raise ``AssertionError`` naming the first offending edge unless the
     mask is a valid maximal matching; returns the check as Python values."""
-    out = {k: x.item() for k, x in check_matching(edges, match_mask).items()}
+    check = check_matching(edges, match_mask)
+    out = {k: x.item() for k, x in check.items()}  # host-sync: ok — to Python
     if not out["valid"]:
         raise AssertionError(
             f"{label}: matching has endpoint collisions — "

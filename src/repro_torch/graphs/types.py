@@ -37,4 +37,5 @@ class EdgeList:
                         self.num_vertices)
 
     def to_numpy(self) -> Tuple[np.ndarray, np.ndarray]:
-        return self.u.cpu().numpy(), self.v.cpu().numpy()
+        # a copy to the host is what this method is for
+        return self.u.cpu().numpy(), self.v.cpu().numpy()  # host-sync: ok

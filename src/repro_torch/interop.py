@@ -33,7 +33,7 @@ def schedule_from_arrays(fields: Mapping[str, Any]) -> WindowSchedule:
         if value is not None and not isinstance(value, (int, float, str)):
             value = np.asarray(value)
             if value.ndim == 0:
-                value = value.item()
+                value = value.item()  # host-sync: ok — numpy scalar
         kw[name] = value
     return WindowSchedule(**kw)
 

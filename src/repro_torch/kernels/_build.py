@@ -2,12 +2,15 @@
 
 Each kernel's source (``<kernel>/csrc/*.cu``) has a plain C interface. At
 first use ``nvcc`` compiles it for ``sm_90a`` into ``build/repro_torch/`` at
-the repository root, and the library is loaded with ``ctypes``. A library's
-file name carries its source's hash, so an unchanged source is built once
-and reused; each process loads a library at most once.
+the repository root, and the library is loaded with ``ctypes``. A built
+file's name carries the hash of its source and of the sources that one
+includes with ``#include "..."``, so an unchanged source is built once and
+reused; each process loads a library at most once. Beside each built file
+lies nvcc's log (for a library, the ptxas report of ``-Xptxas=-v``).
 
 :func:`build` takes several sources and runs one ``nvcc`` for each, all
-started together.
+started together; with ``ptx=True`` it writes each source's PTX instead
+(the analyzer reads both).
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -37,28 +41,71 @@ def nvcc_command(source: Path, output: Path) -> List[str]:
     ]
 
 
+def ptx_command(source: Path, output: Path) -> List[str]:
+    """The nvcc command line that writes the PTX of ``source`` to
+    ``output``: :func:`nvcc_command`'s target and flags, stopped at PTX."""
+    cmd = nvcc_command(source, output)
+    cmd[cmd.index("arch=compute_90a,code=sm_90a")] = (
+        "arch=compute_90a,code=compute_90a")
+    for flag in ("-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC"):
+        cmd.remove(flag)
+    cmd.insert(cmd.index("-o"), "-ptx")
+    return cmd
+
+
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _source_digest(source: Path) -> str:
+    """sha256 of ``source`` and, recursively, of the files it includes
+    with ``#include "..."`` (resolved beside the including file)."""
+    h, seen, todo = hashlib.sha256(), set(), [Path(source).resolve()]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        h.update(text)
+        todo.extend(path.parent / inc for inc in
+                    _LOCAL_INCLUDE.findall(text.decode(errors="replace")))
+    return h.hexdigest()[:12]
+
+
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(Path(source).read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{Path(source).stem}_{digest}.so"
+    return BUILD_DIR / f"lib{Path(source).stem}_{_source_digest(source)}.so"
 
 
-def build(*sources: Path) -> Dict[str, Dict[str, object]]:
-    """Compile every source whose library does not exist yet, one nvcc
-    process per source, all running at once. Returns, per source path,
-    ``{"path", "seconds", "log"}`` (``seconds`` 0.0 and ``log`` empty when
-    the library was already there). Raises ``RuntimeError`` naming every
-    source nvcc failed on."""
+def ptx_path(source: Path) -> Path:
+    return BUILD_DIR / f"{Path(source).stem}_{_source_digest(source)}.ptx"
+
+
+def _log_path(out: Path) -> Path:
+    return out.with_name(out.name + ".log")
+
+
+def build(*sources: Path, ptx: bool = False) -> Dict[str, Dict[str, object]]:
+    """Compile every source whose library (with ``ptx=True``, whose PTX)
+    does not exist yet, one nvcc process per source, all running at once.
+    Returns, per source path, ``{"path", "seconds", "log"}``: ``seconds``
+    is 0.0 when the file was already there, and ``log`` is nvcc's log of
+    the build that made it. Raises ``RuntimeError`` naming every source
+    nvcc failed on."""
+    target, command = (ptx_path, ptx_command) if ptx else (library_path,
+                                                           nvcc_command)
     results: Dict[str, Dict[str, object]] = {}
     running = []
     for source in sources:
-        out = library_path(source)
+        out = target(source)
         if out.exists():
-            results[str(source)] = {"path": str(out), "seconds": 0.0,
-                                    "log": ""}
+            log = _log_path(out)
+            results[str(source)] = {
+                "path": str(out), "seconds": 0.0,
+                "log": log.read_text() if log.exists() else ""}
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.Popen(nvcc_command(Path(source), tmp),
+        proc = subprocess.Popen(command(Path(source), tmp),
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running.append((source, out, tmp, proc, time.perf_counter()))
@@ -69,6 +116,7 @@ def build(*sources: Path) -> Dict[str, Dict[str, object]]:
         if proc.returncode != 0:
             failed.append(f"{source}: nvcc exit {proc.returncode}\n{log}")
             continue
+        _log_path(out).write_text(log)
         os.replace(tmp, out)
         results[str(source)] = {"path": str(out), "seconds": seconds,
                                 "log": log}

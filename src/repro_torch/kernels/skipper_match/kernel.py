@@ -84,6 +84,13 @@ def window_tier_smem_bytes(window: int, tile_size: int,
     return -(-window * spec.vmem_bytes // 4) * 4 + 9 * tile_size
 
 
+def boundary_smem_bytes(tile_size: int) -> int:
+    """Dynamic shared memory of the global-tier block: the tile's u and v
+    ids and free flags (``launch_boundary`` in the CUDA source requests
+    ``9 * T``)."""
+    return 9 * tile_size
+
+
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
@@ -151,7 +158,8 @@ def window_tier(
              f"window tier needs {smem} B of shared memory per block "
              f"(window={window}, {spec.vmem} state, tile {tile_size}); "
              f"a block has {MAX_SMEM_BYTES} B")
-    _require(bool(_ids_ok(u_rows, v_rows, window, window)),
+    ids_ok = _ids_ok(u_rows, v_rows, window, window)
+    _require(bool(ids_ok),  # host-sync: ok — ids index device memory
              f"edge ids out of range: ids must lie in [0, {window}), "
              "padding is (-1, -1)")
     states = torch.empty_like(state_in)
@@ -220,7 +228,8 @@ def boundary_tier(
         return matched, conflicts
     blocks_ok = ((blk_u >= 0) & (blk_u < num_windows) & (blk_v >= 0)
                  & (blk_v < num_windows)).all()
-    _require(bool(_ids_ok(u_tiles, v_tiles, window, 2 * window) & blocks_ok),
+    ids_ok = _ids_ok(u_tiles, v_tiles, window, 2 * window) & blocks_ok
+    _require(bool(ids_ok),  # host-sync: ok — ids index device memory
              f"ids out of range: u must lie in [0, {window}), v in "
              f"[0, {2 * window}), padding is (-1, -1), pair blocks in "
              f"[0, {num_windows})")

@@ -116,7 +116,8 @@ def ref_boundary_pass(
     window = state_rows.shape[1]
     matched = torch.zeros(u_tiles.shape, dtype=cdt, device=u_tiles.device)
     conflicts = torch.zeros_like(matched)
-    for k, (bu, bv) in enumerate(zip(blk_u.tolist(), blk_v.tolist())):
+    pairs = zip(blk_u.tolist(), blk_v.tolist())  # host-sync: ok — host loop
+    for k, (bu, bv) in enumerate(pairs):
         _, mt, cf, _ = engine.tile_pass_pair(
             state_rows, u_tiles[k], v_tiles[k], bu, bv, window=window,
             vector_rounds=vector_rounds, fallback=fallback,

@@ -35,7 +35,7 @@ EOS = 2
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.synchronize(device)  # host-sync: ok — timing boundary
 
 
 def serve(arch: str, smoke: bool, num_requests: int, slots: int,
@@ -90,7 +90,7 @@ def serve(arch: str, smoke: bool, num_requests: int, slots: int,
             if st is None:
                 continue
             tok, cache = serve_step(model, st["cache"], st["tokens"])
-            nxt = int(tok[0, 0])
+            nxt = int(tok[0, 0])  # host-sync: ok — EOS and output
             outputs[st["rid"]].append(nxt)
             decoded += 1
             st["tokens"], st["cache"], st["n"] = tok, cache, st["n"] + 1

@@ -193,3 +193,40 @@ def test_smoke_serve_on_card(cuda_device):
     out2, _ = serve("granite-moe-3b-a800m", True, **kw)
     assert out1 == out2 and sorted(out1) == [0, 1, 2]
     assert stats["decoded"] == sum(len(v) for v in out1.values())
+
+
+@pytest.mark.cuda
+def test_analyzer_clean_on_built_kernels(cuda_device):
+    """Every template instance of the three kernels and every entry target
+    analyzes to no ERROR, and so does src/repro_torch."""
+    from repro_torch.analysis import run_analysis
+
+    report = run_analysis()
+    assert report.clean, report.render()
+    assert len(report.targets_analyzed) == 17
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dropped_dma_wait", "dynamic_gather",
+                                  "hardcoded_state_dtype",
+                                  "swapped_writeback"])
+def test_analyzer_catches_each_canary(cuda_device, name):
+    from repro_torch.analysis import analyze_mutation
+    from repro_torch.analysis.runner import caught
+
+    assert caught(name, analyze_mutation(name))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dynamic_gather", "swapped_writeback"])
+def test_canary_equals_its_plain_version(cuda_device, name):
+    from repro_torch.analysis import mutations
+    from repro_torch.analysis.rules.order import fixture
+
+    x = fixture("boundary", StateSpec.u8(), cuda_device)
+    sk, sp = x["state"].clone(), x["state"].clone()
+    args = (x["blk_u"], x["blk_v"], x["u"], x["v"])
+    got = mutations.boundary_tier(name, sk, *args)
+    want = mutations.plain(name, sp, *args)
+    torch.cuda.synchronize()
+    _same((sk, sp), *zip(got, want))

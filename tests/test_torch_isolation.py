@@ -48,6 +48,32 @@ def test_import_loads_no_jax_and_no_reference():
     assert int(proc.stdout.split()[-1]) >= 15
 
 
+def test_analysis_and_roofline_load_no_jax_and_no_reference():
+    """The analyzer and the roofline models stand alone too: importing all
+    of ``repro_torch.analysis`` (rules, targets, mutations, the CLI) and
+    ``repro_torch.roofline`` loads neither jax nor the JAX package."""
+    script = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch.analysis, repro_torch.roofline\n"
+        "names = ['repro_torch.analysis.__main__']\n"
+        "for pkg in (repro_torch.analysis, repro_torch.roofline):\n"
+        "    names += [m.name for m in pkgutil.walk_packages(\n"
+        "        pkg.__path__, pkg.__name__ + '.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "bad = sorted(n for n in sys.modules\n"
+        "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.split()[-1]) >= 15
+
+
 def _imports(path):
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
@@ -151,6 +177,26 @@ def test_flash_nvcc_command_targets_sm90a_under_build():
 
 def test_cuda_source_is_package_data():
     _check_package_data(kernel.SOURCE)
+
+
+def test_mutant_source_is_package_data_and_builds_like_the_rest():
+    from repro_torch.analysis import mutations
+
+    _check_package_data(mutations.SOURCE)
+    _check_nvcc_command(mutations.SOURCE)
+
+
+def test_ptx_command_keeps_the_target_and_flags():
+    """The PTX build is the library build's target and flags, stopped at
+    PTX, into build/repro_torch/."""
+    out = _build.ptx_path(kernel.SOURCE)
+    cmd = _build.ptx_command(kernel.SOURCE, out)
+    lib = _build.nvcc_command(kernel.SOURCE, out)
+    assert "arch=compute_90a,code=compute_90a" in cmd and "-ptx" in cmd
+    assert out.parent == ROOT / "build" / "repro_torch"
+    assert out.name.startswith("skipper_match_") and out.suffix == ".ptx"
+    assert [a for a in cmd if a.startswith("-std") or a == "-O3"] == \
+        [a for a in lib if a.startswith("-std") or a == "-O3"]
 
 
 def test_flash_cuda_source_is_package_data():

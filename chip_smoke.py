@@ -10,12 +10,17 @@ Phases (any failure raises and exits non-zero):
 
 1. Identity: the card's name, and its name and power limit from nvidia-smi.
 2. Build: one nvcc for each kernel source (``skipper_match.cu``,
-   ``flash_attention.cu``, and the analyzer's canaries ``mutants.cu``),
-   all started together, for sm_90a, then their PTX the same way; the
-   build times and ptxas reports are printed.
-3. Kernel against plain version, on the card, bit for bit: both kernels,
-   ``skipper_match`` and ``skipper_match_window`` against the plain PyTorch
-   versions of ``ref.py`` on the same CUDA tensors, under
+   ``flash_attention.cu``, ``flash_attention_wgmma.cu`` and the analyzer's
+   canaries ``mutants.cu``), all started together, for sm_90a, then their
+   PTX the same way; the build times and ptxas reports are printed, and
+   the PTX must hold the instructions the redesigned kernels are built
+   from (``wgmma.mma_async``, TMA with mbarrier completion, ``setmaxnreg``;
+   bulk and 4-byte asynchronous copies, mbarrier waits).
+3. Kernel against plain version, on the card, bit for bit: the window
+   tier, the asynchronous global tier (the instance the shape picks, and
+   its device-memory instance where that is another) and the first global
+   tier, ``skipper_match`` and ``skipper_match_window`` against the plain
+   PyTorch versions of ``ref.py`` on the same CUDA tensors, under
    ``StateSpec.u8()`` and ``legacy_i32()`` and ``vector_rounds`` 1 and 2,
    on small schedules (RMAT scale 14, the pinned odd shapes, all-boundary,
    same-block pairs, an empty global tier, a star, a path, and a stream
@@ -24,11 +29,15 @@ Phases (any failure raises and exits non-zero):
    kernel with one row) is also timed beside its plain version and bound.
 4. Full scale: Graph500 RMAT (scale 22, edge factor 16) with window 65536,
    tile 256, degree reordering, uint8 state, one vector round. The main
-   path runs once with the launch counts reset just before it; then the
-   kernels and ``skipper_match`` are timed with CUDA events, each kernel is
-   held bit for bit against its plain version on the same inputs, and the
-   result must pass ``check_matching``, the state-domain check and the
-   greedy certificate.
+   path runs once with the launch counts reset just before it (the window
+   tier and the asynchronous global tier, staged, must launch); then the
+   kernels and ``skipper_match`` are timed with CUDA events, the global
+   tiers in turns (first, asynchronous, asynchronous, first; then the
+   device-memory instance) with their time per tile, and once more with
+   the asynchronous tier's cycle profile on (where its tile loop spends
+   its cycles), each held bit for bit against the plain version on the
+   same inputs, and the result must pass ``check_matching``, the
+   state-domain check and the greedy certificate.
 4a. Analysis: the port's kernel conformance analyzer
    (``repro_torch.analysis``) over ``src/repro_torch`` and every target
    (each template instance of the three production kernels, and the
@@ -39,15 +48,19 @@ Phases (any failure raises and exits non-zero):
    on the canonical schedule's global tier, where all three are timed. A
    JSON line gives the findings by rule and severity and each kernel's
    registers, shared memory and stack.
-5. Flash attention: the kernel against its plain online-softmax version
-   and against the model's chunked attention on the same CUDA inputs, in
-   f32 and bf16, at granite-moe-3b-a800m's attention widths (S 128, 1024,
-   4096, causal; one non-causal case) and at mixtral-8x7b's with its
-   sliding window; then its path, the ``flash_attention`` entry point at
-   granite's prefill_32k attention shape, once with the launch count reset
-   just before it, and the kernel, its plain version and
-   ``scaled_dot_product_attention`` timed there; the kernel is held against
-   its plain version at that shape too, in bf16 and in f32.
+5. Flash attention: the kernel the entry point picks (the tensor-core
+   kernel for bf16, the CUDA-core kernel for f32) against its plain
+   online-softmax version and against the model's chunked attention on
+   the same CUDA inputs, in f32 and bf16, at granite-moe-3b-a800m's
+   attention widths (S 128, 1024, 4096, causal; one non-causal case) and
+   at mixtral-8x7b's with its sliding window; in bf16 the CUDA-core kernel
+   too, and the tensor-core kernel with P in one and in two bf16 terms,
+   whose misses of the one-step criterion are counted (not held). Then
+   the path, the ``flash_attention`` entry point at granite's prefill_32k
+   attention shape in bf16 and in f32, once with the launch counts reset
+   just before it, and both kernels, the plain version and
+   ``scaled_dot_product_attention`` timed there; the kernels are held
+   against the plain version at that shape too, in bf16 and in f32.
 6. Serving: ``repro_torch.launch.serve.serve`` on granite-moe-3b-a800m at
    full width and depth (bf16, seeded weights, Skipper router), 8 requests
    on 4 slots, prompts of 512, 32 new tokens, twice. The first run records
@@ -85,11 +98,20 @@ REPLACES = {
         "src/repro/kernels/skipper_match/kernel.py:158",
     "skipper_boundary_kernel":
         "src/repro/kernels/skipper_match/kernel.py:196",
+    "skipper_boundary_async_kernel":
+        "src/repro/kernels/skipper_match/kernel.py:196",
     "flash_attention_kernel":
+        "src/repro/kernels/flash_attention/kernel.py:28",
+    "flash_attention_wgmma_kernel":
         "src/repro/kernels/flash_attention/kernel.py:28",
 }
 SOURCE = "src/repro_torch/kernels/skipper_match/csrc/skipper_match.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FLASH_WGMMA_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention_wgmma.cu")
+WINDOW, BOUNDARY, ASYNC = ("skipper_window_tier_kernel",
+                           "skipper_boundary_kernel",
+                           "skipper_boundary_async_kernel")
 MUTANT_SOURCE = "src/repro_torch/analysis/csrc/mutants.cu"
 
 
@@ -247,8 +269,11 @@ def tier_inputs(s, dev):
 
 
 def compare_tiers(s, spec, vr, dev):
-    """Both kernels against their plain versions on the same CUDA inputs;
-    returns the max_abs_err of the window tier and of the global tier."""
+    """The tier kernels against their plain versions on the same CUDA
+    inputs: the window tier, the asynchronous global tier (the instance
+    the shape picks, and the device-memory one when that is not it) and
+    the first global tier. Returns the max_abs_err of the window tier and
+    of each global tier, by kernel name."""
     from repro_torch.kernels.skipper_match import kernel, ref
 
     x = tier_inputs(s, dev)
@@ -262,15 +287,21 @@ def compare_tiers(s, spec, vr, dev):
     flat = torch.zeros((s.num_windows, s.window), dtype=spec.vmem_dtype,
                        device=dev)
     flat[x["rows"]] = p_out[0]
-    err_b = 0
+    errs = {WINDOW: err_w, BOUNDARY: 0, ASYNC: 0}
     if s.num_boundary_tiles:
-        fk, fp = flat.clone(), flat.clone()
         args = (x["blk_u"], x["blk_v"], x["bu"], x["bv"])
-        kb = kernel.boundary_tier(fk, *args, vector_rounds=vr, spec=spec)
+        fp = flat.clone()
         pb = ref.ref_boundary_pass(fp, *args, vector_rounds=vr, spec=spec)
-        torch.cuda.synchronize()
-        err_b = max_err((fk, fp), *zip(kb, pb))
-    return err_w, err_b
+        runs = [(ASYNC, kernel.boundary_tier, {}),
+                (BOUNDARY, kernel.boundary_tier_sync, {})]
+        if kernel.boundary_instance(s.window, s.tile_size, spec) != "device":
+            runs.append((ASYNC, kernel.boundary_tier, {"instance": "device"}))
+        for name, fn, extra in runs:
+            fk = flat.clone()
+            kb = fn(fk, *args, vector_rounds=vr, spec=spec, **extra)
+            torch.cuda.synchronize()
+            errs[name] = max(errs[name], max_err((fk, fp), *zip(kb, pb)))
+    return errs
 
 
 def compare_match(edges, s, spec, vr, dev):
@@ -312,26 +343,29 @@ def phase_small(dev):
     from repro_torch.core.statespec import StateSpec
     from repro_torch.graphs import build_window_schedule
 
-    worst = {"skipper_window_tier_kernel": 0, "skipper_boundary_kernel": 0}
+    from repro_torch.kernels.skipper_match import kernel
+
+    worst = {WINDOW: 0, BOUNDARY: 0, ASYNC: 0}
     t0 = time.perf_counter()
     for label, edges, window, tile, reorder in small_cases():
         s = build_window_schedule(edges, window, tile, reorder=reorder)
         for spec_name in ("u8", "legacy_i32"):
             spec = getattr(StateSpec, spec_name)()
             for vr in (1, 2):
-                err_w, err_b = compare_tiers(s, spec, vr, dev)
+                errs = compare_tiers(s, spec, vr, dev)
                 err_m = compare_match(edges, s, spec, vr, dev)
                 log(f"  {label:>18} {spec_name:>10} rounds={vr} "
                     f"rows={s.num_rows}x{s.tiles_per_window} "
                     f"global_tiles={s.num_boundary_tiles} "
-                    f"err window={err_w} boundary={err_b} match={err_m}")
-                require(err_w == 0 and err_b == 0 and err_m == 0,
+                    f"{kernel.boundary_instance(window, tile, spec)} "
+                    f"err window={errs[WINDOW]} global={errs[ASYNC]} "
+                    f"first_global={errs[BOUNDARY]} match={err_m}")
+                require(max(errs.values()) == 0 and err_m == 0,
                         f"{label}/{spec_name}/rounds={vr}: kernel and plain "
                         "version disagree")
-                worst["skipper_window_tier_kernel"] = max(
-                    worst["skipper_window_tier_kernel"], err_w, err_m)
-                worst["skipper_boundary_kernel"] = max(
-                    worst["skipper_boundary_kernel"], err_b, err_m)
+                for name in (WINDOW, ASYNC):   # the two on skipper_match
+                    worst[name] = max(worst[name], errs[name], err_m)
+                worst[BOUNDARY] = max(worst[BOUNDARY], errs[BOUNDARY])
         if label == "rmat14":
             time_match_window(s, dev)
     log(f"phase 3 passed in {time.perf_counter() - t0:.1f} s")
@@ -409,8 +443,10 @@ def phase_full(dev, seed: int, scale: int, worst):
     peak = torch.cuda.max_memory_allocated()
     log(f"main path: {first_s:.3f} s (first call), launches {launches}, "
         f"peak device memory {peak} B")
-    require(all(n > 0 for n in launches.values()),
+    require(launches[WINDOW] > 0 and launches[ASYNC] > 0,
             f"a kernel of the main path was not launched: {launches}")
+    require(kernel.boundary_instance(window, tile, spec) == "staged",
+            "the full-scale global tier is not the staged instance")
 
     edges_dev = edges.to(dev)
     chk = check_matching(edges_dev, res.match_mask)
@@ -455,52 +491,97 @@ def phase_full(dev, seed: int, scale: int, worst):
                        device=dev)
     flat[x["rows"]] = w_out[0]
     args = (x["blk_u"], x["blk_v"], x["bu"], x["bv"])
-    b_times = []
-    for _ in range(2):
-        fk = flat.clone()
-        ms, b_out = cuda_time(lambda: kernel.boundary_tier(
-            fk, *args, vector_rounds=vr, spec=spec))
-        b_times.append(ms)
-    b_ms = min(b_times)
     fp = flat.clone()
     bp_ms, bp_out = cuda_time(lambda: ref.ref_boundary_pass(
         fp, *args, vector_rounds=vr, spec=spec))
-    err_b = max_err((fk, fp), *zip(b_out, bp_out))
-    log(f"global tier: kernel {b_ms:.3f} ms, plain {bp_ms:.1f} ms, "
-        f"max_abs_err {err_b}")
-    require(err_w == 0 and err_b == 0,
-            "full scale: kernel and plain version disagree")
-    worst["skipper_window_tier_kernel"] = max(
-        worst["skipper_window_tier_kernel"], err_w)
-    worst["skipper_boundary_kernel"] = max(
-        worst["skipper_boundary_kernel"], err_b)
+    plain = (fp, *bp_out)
+    # the global tiers in turns (first, async, async, first), each held
+    # bit for bit against the plain version and so against each other;
+    # the device-memory instance of the asynchronous tier once
+    runs = [(BOUNDARY, kernel.boundary_tier_sync, {}),
+            (ASYNC, kernel.boundary_tier, {}), (ASYNC, kernel.boundary_tier, {}),
+            (BOUNDARY, kernel.boundary_tier_sync, {}),
+            ("device instance", kernel.boundary_tier, {"instance": "device"})]
+    g_times, err_b = {}, {BOUNDARY: 0, ASYNC: 0, "device instance": 0}
+    for name, fn, extra in runs:
+        fk = flat.clone()
+        ms, b_out = cuda_time(lambda: fn(fk, *args, vector_rounds=vr,
+                                         spec=spec, **extra))
+        g_times.setdefault(name, []).append(ms)
+        err_b[name] = max(err_b[name], max_err(*zip((fk, *b_out), plain)))
+    nb = s.num_boundary_tiles
+    b_ms = {name: min(t) for name, t in g_times.items()}
+    for name, ms in b_ms.items():
+        log(f"global tier {name}: {ms:.3f} ms ({g_times[name]}), "
+            f"{1e3 * ms / nb:.4f} us a tile over {nb} tiles, "
+            f"max_abs_err against plain {err_b[name]}")
+    log(f"global tier plain: {bp_ms:.1f} ms")
+    # one more run with the kernel's cycle profile on (thread 0's clock64
+    # spans over the tile loop), also held against the plain version
+    prof = torch.zeros(len(kernel.PROFILE_FIELDS), dtype=torch.int64,
+                       device=dev)
+    fk = flat.clone()
+    prof_ms, b_out = cuda_time(lambda: kernel.boundary_tier(
+        fk, *args, vector_rounds=vr, spec=spec, profile=prof))
+    err_b["profiled"] = max_err(*zip((fk, *b_out), plain))
+    cyc = dict(zip(kernel.PROFILE_FIELDS, prof.tolist()))
+    free = max(cyc["free_tiles"], 1)
+    tile_profile = {
+        "profiled_ms": prof_ms,
+        "cycles_per_us": cyc["total"] / (prof_ms * 1e3),
+        **{f"{f}_cycles_per_tile": cyc[f] / nb for f in
+           ("wait_and_ids", "state_rows", "tile_body",
+            "counters_release_refill", "total")},
+        "free_tile_share": cyc["free_tiles"] / nb,
+        "tile_body_cycles_in_free_tiles": cyc["tile_body_in_free_tiles"]
+        / free,
+        "tile_body_cycles_in_other_tiles": (
+            cyc["tile_body"] - cyc["tile_body_in_free_tiles"])
+        / max(nb - cyc["free_tiles"], 1),
+        "free_rounds_per_free_tile": cyc["free_rounds"] / free,
+    }
+    log("global tier profile: " + json.dumps(tile_profile))
+    require(err_w == 0 and max(err_b.values()) == 0,
+            "full scale: a kernel and its plain version disagree")
+    worst[WINDOW] = max(worst[WINDOW], err_w)
+    worst[ASYNC] = max(worst[ASYNC], err_b[ASYNC], err_b["device instance"],
+                       err_b["profiled"])
+    worst[BOUNDARY] = max(worst[BOUNDARY], err_b[BOUNDARY])
 
     metrics = {
         "skipper_match_ms_events": match_ms,
         "skipper_match_wall_s": wall_s,
         "medges_per_s": s.num_valid / (match_ms * 1e-3) / 1e6,
-        "window_tier_ms": w_ms, "global_tier_ms": b_ms,
+        "window_tier_ms": w_ms, "global_tier_ms": b_ms[ASYNC],
+        "global_tier_us_per_tile": 1e3 * b_ms[ASYNC] / nb,
+        "first_global_tier_ms": b_ms[BOUNDARY],
+        "first_global_tier_us_per_tile": 1e3 * b_ms[BOUNDARY] / nb,
+        "device_instance_ms": b_ms["device instance"],
+        "global_tier_speedup": b_ms[BOUNDARY] / b_ms[ASYNC],
+        "global_tier_profile": tile_profile,
         "schedule_copy_ms": copy_ms,
         "peak_device_bytes": peak,
     }
     log("full-scale metrics: " + json.dumps(metrics))
     log("bound_ms counts the bytes each kernel must move at 3.35 TB/s; the "
-        "serial chain of tiles in one block, not bytes, limits both today")
-    bounds = {
-        "skipper_window_tier_kernel": h100.window_bytes(s, spec),
-        "skipper_boundary_kernel": h100.boundary_bytes(s, spec),
-    }
-    times = {"skipper_window_tier_kernel": (w_ms, wp_ms),
-             "skipper_boundary_kernel": (b_ms, bp_ms)}
-    return [
+        "serial chain of tiles in one block, not bytes, limits all three")
+    bounds = {WINDOW: h100.window_bytes(s, spec),
+              BOUNDARY: h100.boundary_bytes(s, spec),
+              ASYNC: h100.boundary_bytes(s, spec)}
+    times = {WINDOW: (w_ms, wp_ms), BOUNDARY: (b_ms[BOUNDARY], bp_ms),
+             ASYNC: (b_ms[ASYNC], bp_ms)}
+    entries = [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": worst[name], "ms": times[name][0],
          "plain_ms": times[name][1],
          "bound_ms": h100.bytes_ms(bounds[name]),
          "bound_by": "bytes", "library_ms": None}
-        for name in ("skipper_window_tier_kernel", "skipper_boundary_kernel")
-    ]
+        for name in (WINDOW, ASYNC, BOUNDARY)]
+    # the first global tier left the main path: the yardstick of its
+    # replacement, and the body the analyzer's canaries copy
+    entries[-1]["status"] = "superseded"
+    return entries
 
 
 # --------------------------------------------------------------- phase 4a --
@@ -661,6 +742,13 @@ def flash_cases():
     return cases
 
 
+def step_misses(got: torch.Tensor, plain: torch.Tensor) -> int:
+    """Elements of a bf16 result more than one bf16 step (+ the floor) from
+    the plain value."""
+    diff = (got.float() - plain.float()).abs()
+    return int((diff > bf16_step(plain) + BF16_STEP_FLOOR).sum())
+
+
 def phase_flash(dev, seed: int):
     import torch.nn.functional as F
 
@@ -673,7 +761,10 @@ def phase_flash(dev, seed: int):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(seed)
-    worst = 0.0
+    worst = {kernel.FLASH: 0.0, kernel.FLASH_WGMMA: 0.0}
+    # why P is split in three: the outputs one and two bf16 terms leave
+    # more than one step from the plain version (reported, not held)
+    p_term_misses = {}
     t0 = time.perf_counter()
     for label, w, s, causal, window in flash_cases():
         for dtype in (torch.float32, torch.bfloat16):
@@ -681,6 +772,7 @@ def phase_flash(dev, seed: int):
             q, k, v = flash_inputs(gen, w["b"], w["hq"], w["hkv"], s, w["d"],
                                    dtype, dev)
             blk = min(128, s)
+            name = kernel.kernel_for(dtype, w["d"])
             got = kernel.flash_attention_cuda(
                 q, k, v, causal=causal, window=window,
                 sm_scale=w["d"] ** -0.5, block_q=blk, block_k=blk)
@@ -694,30 +786,53 @@ def phase_flash(dev, seed: int):
             require(bool(torch.isfinite(got).all()), f"{label}: non-finite")
             err, ok = compare_flash(got, plain)
             err_model = (got.float() - model.float()).abs().max().item()
-            log(f"  flash {label:>28} {str(dtype)[6:]:>8}: kernel-plain "
-                f"{err:.3e} (tol {tol_plain}"
+            log(f"  flash {label:>28} {str(dtype)[6:]:>8} {name}: "
+                f"kernel-plain {err:.3e} (tol {tol_plain}"
                 f"{', one bf16 step' if dtype == torch.bfloat16 else ''}), "
                 f"kernel-model {err_model:.3e} (tol {tol_model})")
             require(ok and err_model <= tol_model,
                     f"flash {label} {dtype}: kernel and plain version or "
                     "model attention disagree")
-            worst = max(worst, err)
+            worst[name] = max(worst[name], err)
+            if dtype == torch.bfloat16:
+                # the CUDA-core kernel on the same bf16 inputs
+                old = kernel.flash_attention_cuda_cores(
+                    q, k, v, causal=causal, window=window,
+                    sm_scale=w["d"] ** -0.5, block_q=blk, block_k=blk)
+                err_old, ok = compare_flash(old, plain)
+                require(ok, f"flash {label}: the CUDA-core kernel and the "
+                        f"plain version disagree ({err_old})")
+                worst[kernel.FLASH] = max(worst[kernel.FLASH], err_old)
+                p_term_misses[label] = [step_misses(
+                    kernel.flash_attention_wgmma_p_terms(
+                        q, k, v, causal=causal, window=window,
+                        sm_scale=w["d"] ** -0.5, p_terms=n), plain)
+                    for n in (1, 2)]
+                del old
             del q, k, v, got, plain, model
 
-    # the path: the entry point at granite's prefill_32k attention shape
+    # the path: the entry point at granite's prefill_32k attention shape,
+    # in bf16 (the tensor-core kernel) and in f32 (the CUDA-core kernel)
     w, s = GRANITE_ATTN, 32768
     q, k, v = flash_inputs(gen, w["b"], w["hq"], w["hkv"], s, w["d"],
                            torch.bfloat16, dev)
+    q32, k32, v32 = (t.float() for t in (q, k, v))
     kernel.reset_launch_counts()
     out = flash_attention(q, k, v, causal=True)
+    out32 = flash_attention(q32, k32, v32, causal=True)
     torch.cuda.synchronize()
-    launches = kernel.launch_counts()[kernel.FLASH]
-    require(launches > 0, "flash_attention did not launch its kernel")
-    require(bool(torch.isfinite(out).all()), "prefill_32k: non-finite")
-    kw = dict(causal=True, window=0, sm_scale=w["d"] ** -0.5, block_q=128,
-              block_k=128)
-    ms, got = cuda_time(lambda: kernel.flash_attention_cuda(q, k, v, **kw),
-                        reps=3)
+    launches = kernel.launch_counts()
+    require(launches[kernel.FLASH_WGMMA] > 0 and launches[kernel.FLASH] > 0,
+            f"flash_attention did not launch its kernels: {launches}")
+    require(bool(torch.isfinite(out).all())
+            and bool(torch.isfinite(out32).all()), "prefill_32k: non-finite")
+    del out, out32
+    kw = dict(causal=True, window=0, sm_scale=w["d"] ** -0.5)
+    blocks = dict(block_q=128, block_k=128)
+    ms, got = cuda_time(lambda: kernel.flash_attention_cuda(
+        q, k, v, **kw, **blocks), reps=3)
+    old_ms, old = cuda_time(lambda: kernel.flash_attention_cuda_cores(
+        q, k, v, **kw, **blocks))
     cuda_time(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True))           # warm-up
     lib_ms, lib = cuda_time(lambda: F.scaled_dot_product_attention(
@@ -728,46 +843,72 @@ def phase_flash(dev, seed: int):
     err_lib = (got.float() - lib.float()).abs().max().item()
     require(ok, f"prefill_32k bf16: kernel and plain version disagree "
             f"({err}, tolerance 2e-2 and one bf16 step)")
-    worst = max(worst, err)
+    err_old, ok = compare_flash(old, plain)
+    require(ok, f"prefill_32k bf16: the CUDA-core kernel and the plain "
+            f"version disagree ({err_old})")
+    worst[kernel.FLASH_WGMMA] = max(worst[kernel.FLASH_WGMMA], err)
+    worst[kernel.FLASH] = max(worst[kernel.FLASH], err_old)
+    terms_ms = {}
+    for n in (1, 2):
+        terms_ms[n], one = cuda_time(
+            lambda: kernel.flash_attention_wgmma_p_terms(q, k, v, **kw,
+                                                         p_terms=n))
+        p_term_misses.setdefault("prefill_32k", []).append(
+            step_misses(one, plain))
+        del one
     bound, bound_by = h100.flash_bound_ms(w["b"], w["hq"], w["hkv"], s,
                                           w["d"], 2)
-    del q, k, v, out, got, lib, plain
+    del q, k, v, got, old, lib, plain
     # the same shape in f32, held at 2e-5
-    q, k, v = flash_inputs(gen, w["b"], w["hq"], w["hkv"], s, w["d"],
-                           torch.float32, dev)
-    got = kernel.flash_attention_cuda(q, k, v, **kw)
-    plain = online_softmax_attention(q, k, v, block_q=128, block_k=128,
-                                     causal=True)
+    f32_ms, got = cuda_time(lambda: kernel.flash_attention_cuda(
+        q32, k32, v32, **kw, **blocks))
+    plain = online_softmax_attention(q32, k32, v32, block_q=128,
+                                     block_k=128, causal=True)
     err_f32, ok = compare_flash(got, plain)
     require(ok, f"prefill_32k f32: kernel and plain version disagree "
             f"({err_f32}, tolerance 2e-5)")
-    worst = max(worst, err_f32)
-    del q, k, v, got, plain
-    # kernel and plain version beside each other at S = 4096
+    worst[kernel.FLASH] = max(worst[kernel.FLASH], err_f32)
+    del q32, k32, v32, got, plain
+    # kernels and plain version beside each other at S = 4096
     q, k, v = flash_inputs(gen, w["b"], w["hq"], w["hkv"], 4096, w["d"],
                            torch.bfloat16, dev)
-    ms_4k, _ = cuda_time(lambda: kernel.flash_attention_cuda(q, k, v, **kw),
-                         reps=3)
+    ms_4k, _ = cuda_time(lambda: kernel.flash_attention_cuda(
+        q, k, v, **kw, **blocks), reps=3)
+    old_4k, _ = cuda_time(lambda: kernel.flash_attention_cuda_cores(
+        q, k, v, **kw, **blocks), reps=3)
     plain_4k, _ = cuda_time(lambda: online_softmax_attention(
         q, k, v, block_q=128, block_k=128, causal=True), reps=2)
     del q, k, v
     metrics = {
         "shape": "B=1 S=32768 Hq=24 Hkv=8 D=64 causal bf16",
-        "kernel_ms": ms, "plain_ms": plain_ms, "sdpa_ms": lib_ms,
-        "bound_ms": bound, "bound_by": bound_by,
-        "kernel_vs_plain_err": err, "kernel_vs_plain_err_f32": err_f32,
-        "kernel_vs_sdpa_err": err_lib,
-        "kernel_ms_s4096": ms_4k, "plain_ms_s4096": plain_4k,
-        "launches_on_path": launches,
+        "kernel_ms": ms, "cuda_core_kernel_ms": old_ms,
+        "cuda_core_kernel_f32_ms": f32_ms, "plain_ms": plain_ms,
+        "sdpa_ms": lib_ms, "bound_ms": bound, "bound_by": bound_by,
+        "kernel_over_bound": ms / bound, "kernel_over_sdpa": ms / lib_ms,
+        "p_terms": kernel.P_TERMS,
+        "kernel_ms_by_p_terms": {1: terms_ms[1], 2: terms_ms[2],
+                                 kernel.P_TERMS: ms},
+        "step_misses_by_p_terms_1_2": p_term_misses,
+        "kernel_vs_plain_err": err, "cuda_core_vs_plain_err": err_old,
+        "kernel_vs_plain_err_f32": err_f32, "kernel_vs_sdpa_err": err_lib,
+        "kernel_ms_s4096": ms_4k, "cuda_core_kernel_ms_s4096": old_4k,
+        "plain_ms_s4096": plain_4k, "launches_on_path": launches,
         "seconds": time.perf_counter() - t0,
     }
     log("flash metrics: " + json.dumps(metrics))
-    return {"name": "flash_attention_kernel", "route": "cuda",
-            "source": FLASH_SOURCE,
-            "replaces": REPLACES["flash_attention_kernel"],
-            "launches": launches, "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": lib_ms}
+    common = {"route": "cuda", "plain_ms": plain_ms, "bound_ms": bound,
+              "bound_by": bound_by, "library_ms": lib_ms}
+    return [
+        {"name": kernel.FLASH_WGMMA, "source": FLASH_WGMMA_SOURCE,
+         "replaces": REPLACES[kernel.FLASH_WGMMA],
+         "launches": launches[kernel.FLASH_WGMMA],
+         "max_abs_err": worst[kernel.FLASH_WGMMA], "ms": ms, **common},
+        # the f32 and D = 80 kernel; timed on the path's bf16 inputs
+        {"name": kernel.FLASH, "source": FLASH_SOURCE,
+         "replaces": REPLACES[kernel.FLASH],
+         "launches": launches[kernel.FLASH],
+         "max_abs_err": worst[kernel.FLASH], "ms": old_ms, **common},
+    ]
 
 
 # ---------------------------------------------------------------- phase 6 --
@@ -939,7 +1080,7 @@ def phase_serve(dev, seed: int):
     flash.reset_launch_counts()
     with Recorder() as rec:
         out1, st1 = serve(arch, False, **kw)
-    flash_launches = flash.launch_counts()[flash.FLASH]
+    flash_launches = sum(flash.launch_counts().values())
     require(rec.finite and rec.logit_calls > 0,
             "serving: non-finite logits")
     checked = 0
@@ -995,7 +1136,7 @@ def phase_serve(dev, seed: int):
     }
     metrics.update(profile_decode(arch, dev, seed, kw["prompt_len"]))
     log("serving metrics: " + json.dumps(metrics))
-    log("flash_attention_kernel launches on the serving path: "
+    log("flash attention kernel launches on the serving path: "
         f"{flash_launches} (the model's attention is the plain chunked form, "
         "as in the JAX package)")
 
@@ -1018,6 +1159,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.skipper_match import kernel
 
+    start = time.perf_counter()
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -1027,24 +1169,38 @@ def main() -> int:
     log(smi)
 
     t0 = time.perf_counter()
-    sources = (kernel.SOURCE, flash.SOURCE, mutations.SOURCE)
+    sources = (kernel.SOURCE, flash.SOURCE, flash.WGMMA_SOURCE,
+               mutations.SOURCE)
     built = _build.build(*sources)
     log(f"build: {time.perf_counter() - t0:.1f} s for {len(built)} sources")
     for info in built.values():
         log(f"  nvcc {info['seconds']:.1f} s -> {info['path']}")
         log(info["log"].strip())
     t0 = time.perf_counter()
-    for info in _build.build(*sources, ptx=True).values():
+    ptx = _build.build(*sources, ptx=True)
+    for info in ptx.values():
         log(f"  nvcc -ptx {info['seconds']:.1f} s -> {info['path']}")
     log(f"ptx: {time.perf_counter() - t0:.1f} s")
+    # what the redesigned kernels are built from, in their PTX
+    for source, needed in (
+            (flash.WGMMA_SOURCE, ("wgmma.mma_async", "cp.async.bulk.tensor",
+                                  "mbarrier::complete_tx", "setmaxnreg")),
+            (kernel.SOURCE, ("cp.async.bulk.shared", "cp.async.ca.shared",
+                             "mbarrier.try_wait"))):
+        text = Path(str(ptx[str(source)]["path"])).read_text()
+        counts = {w: text.count(w) for w in needed}
+        log(f"  {Path(source).name} PTX: {counts}")
+        require(all(counts.values()), f"{Path(source).name}: PTX lacks one "
+                f"of {needed}")
 
     worst = phase_small(dev)
     kernels = phase_full(dev, args.seed, args.scale, worst)
     # after phase 4: the analyzer's serving census leaves cuBLAS's
     # workspace allocated, which phase 4's peak device memory would count
     kernels += phase_analysis(dev)
-    kernels.append(phase_flash(dev, args.seed))
+    kernels += phase_flash(dev, args.seed)
     phase_serve(dev, args.seed)
+    log(f"chip_smoke: {time.perf_counter() - start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

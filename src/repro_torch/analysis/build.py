@@ -11,7 +11,8 @@ Hopper kernel offers to read instead is what nvcc emits).
 * :func:`parse_ptx` reads PTX into one :class:`PtxEntry` per entry
   function: basic blocks with their successors (labels, ``bra``,
   predicated branches, ``ret``/``exit``), and for each instruction the
-  shared-memory accesses and barriers :mod:`rules.barrier` walks.
+  shared-memory accesses, barriers and asynchronous-copy events
+  :mod:`rules.barrier` walks.
 * :func:`build_artifacts` compiles the sources of a set of targets (the
   library and its PTX, one nvcc per source, in parallel) and pairs each
   target with its entry.
@@ -27,10 +28,22 @@ symbol, and the terms built from parameters or from other invariant
 values, as a dynamic layout offsets its arrays (``tu`` lies
 ``align4(window * sizeof(S))`` bytes past the state row). Constants and
 ``%ntid`` multiples are strides and unrolled steps inside a region and
-are left out. Two accesses whose regions differ are taken not to alias:
+are left out. An address chosen by ``selp`` between two readable shared
+addresses lies in either arm's region (a tuple of the two). Two accesses
+whose regions differ are taken not to alias:
 each kernel indexes its arrays in bounds, which the kernels' own checks
 and the plain-version comparisons hold. An access whose address has no
 readable shared base falls in every region.
+
+Asynchronous copies. A copy into shared memory (``cp.async``,
+``cp.async.bulk``, ``cp.async.bulk.tensor``) is an *async write* of its
+destination's region; a bulk copy or reduction out of shared memory is an
+*async read* of its source's region. An async write carries the region of
+the mbarrier it completes on (bulk copies name it; a plain ``cp.async`` is
+attached to one by ``cp.async.mbarrier.arrive``, or completes at
+``cp.async.wait_group``/``wait_all``). :meth:`PtxEntry.sync_event` reads
+the instructions that order them: an mbarrier wait, an mbarrier arrive,
+those attachments and group waits, and ``cp.async.bulk.wait_group``.
 """
 from __future__ import annotations
 
@@ -202,11 +215,23 @@ class Block:
 @dataclasses.dataclass
 class Access:
     """One shared-memory access: ``kind`` "ld", "st" or "rmw"; ``region``
-    is None when the address has no readable shared base."""
+    is None when the address has no readable shared base, and a tuple of
+    regions when a ``selp`` picks it from readable ones. ``proxy`` is
+    "generic" for a thread's own load or store and "async" for an
+    asynchronous copy (kind "st" into shared memory, "ld" out of it);
+    ``tag`` is an async write's completion: the region of its mbarrier,
+    "group" for a ``cp.async`` not yet attached to one, None when the
+    mbarrier's address is unreadable."""
 
     instr: Instr
     kind: str
     region: Optional[frozenset]
+    proxy: str = "generic"
+    tag: object = None
+
+
+#: an mbarrier or copy-group event (see :meth:`PtxEntry.sync_event`)
+SyncEvent = Tuple[str, Optional[frozenset]]
 
 
 @dataclasses.dataclass
@@ -218,6 +243,7 @@ class PtxEntry:
     shared_symbols: frozenset
     local_bytes: int
     _accesses: Optional[Dict[int, Access]] = None
+    _forms_cache: Optional["_Forms"] = None
 
     def barrier(self, ins: Instr) -> Optional[str]:
         """"cta" for a block-wide barrier (``bar.sync``, ``barrier.sync``,
@@ -233,10 +259,42 @@ class PtxEntry:
             return "cta"
         return None
 
+    def sync_event(self, ins: Instr) -> Optional[SyncEvent]:
+        """``(event, barrier region)`` for an instruction that orders
+        asynchronous copies, else None: "wait" (``mbarrier.try_wait`` or
+        ``test_wait``: the phase of that barrier completed; read as the
+        exit of the spin loop around it), "arrive" (``mbarrier.arrive``:
+        this thread is done with what it read), "attach"
+        (``cp.async.mbarrier.arrive``: the thread's pending ``cp.async``
+        complete on that barrier), "group_wait" (``cp.async.wait_group`` /
+        ``wait_all``) and "bulk_wait" (``cp.async.bulk.wait_group``: the
+        thread's bulk copies out of shared memory are done). Predicated
+        instructions order nothing."""
+        if ins.pred is not None:
+            return None
+        op = ins.op
+        if op.startswith(("mbarrier.try_wait", "mbarrier.test_wait")):
+            return "wait", self._forms().barrier_region(ins)
+        if op.startswith("mbarrier.arrive"):
+            return "arrive", self._forms().barrier_region(ins)
+        if op.startswith("cp.async.mbarrier.arrive"):
+            return "attach", self._forms().barrier_region(ins)
+        if op.startswith(("cp.async.wait_group", "cp.async.wait_all")):
+            return "group_wait", None
+        if op.startswith("cp.async.bulk.wait_group"):
+            return "bulk_wait", None
+        return None
+
+    def _forms(self) -> "_Forms":
+        if self._forms_cache is None:
+            self._forms_cache = _Forms(self)
+        return self._forms_cache
+
     def accesses(self) -> Dict[int, Access]:
-        """Shared-memory accesses by instruction line."""
+        """Shared-memory accesses by instruction line, the asynchronous
+        copies' among them."""
         if self._accesses is None:
-            self._accesses = _Forms(self).accesses()
+            self._accesses = self._forms().accesses()
         return self._accesses
 
 
@@ -282,8 +340,12 @@ def parse_ptx(text: str) -> Dict[str, PtxEntry]:
         while not lines[i].startswith("{"):
             i += 1
         body_start = i + 1
-        while not lines[i].startswith("}"):
+        # the body ends where its braces balance (inline asm opens scopes)
+        depth = 1
+        while depth:
             i += 1
+            text = lines[i].split("//")[0].strip()
+            depth += (text == "{") - (text == "}")
         entries[name] = _parse_body(name, lines, body_start, i)
         i += 1
     for e in entries.values():
@@ -494,11 +556,64 @@ class _Forms:
             form = _add(form, {("const",): off})
         return self.resolve(form)
 
+    def region(self, addr_arg: Optional[str]) -> Optional[frozenset]:
+        """The region of a shared address operand ``[...]``: the invariant
+        part of its form when it has exactly one shared base, else None."""
+        form = self.address(addr_arg) if addr_arg else None
+        syms = [k for k in (form or {}) if k[0] == "sym"
+                and k[1] in self.entry.shared_symbols]
+        if form is None or len(syms) != 1 or form[syms[0]] != 1:
+            return None
+        return self.key_part(form)
+
+    def selected(self, addr_arg: Optional[str]) -> Optional[tuple]:
+        """The regions of ``[%r]`` when ``%r``'s one definition is a
+        ``selp`` between two readable shared addresses, else None."""
+        m = re.fullmatch(r"\[\s*(%[\w$]+)\s*\]", (addr_arg or "").strip())
+        defs = self.defs.get(m.group(1), []) if m else []
+        if len(defs) != 1 or not defs[0].op.startswith("selp"):
+            return None
+        arms = tuple(self.region(f"[{x}]") for x in defs[0].args[1:3])
+        return arms if all(r is not None for r in arms) else None
+
+    def barrier_region(self, ins: Instr) -> Optional[frozenset]:
+        """The region of the mbarrier an instruction names (its bracketed
+        shared address operand)."""
+        return self.region(next((x for x in ins.args if x.startswith("[")),
+                                None))
+
+    def async_access(self, ins: Instr) -> Optional[Access]:
+        """The shared-memory side of an asynchronous copy, or None. The
+        first state space after the opcode is the destination's."""
+        op = ins.op
+        if op.startswith(("cp.async.commit_group", "cp.async.wait",
+                          "cp.async.mbarrier", "cp.async.bulk.commit_group",
+                          "cp.async.bulk.wait_group",
+                          "cp.async.bulk.prefetch")):
+            return None
+        spaces = [p.split("::")[0] for p in op.split(".")
+                  if p.split("::")[0] in ("shared", "global")]
+        bracketed = [x for x in ins.args if x.startswith("[")]
+        if len(spaces) < 2 or len(bracketed) < 2:
+            return None
+        if spaces[0] == "shared":
+            tag = (self.region(bracketed[-1]) if "mbarrier" in op
+                   else "group")
+            return Access(ins, "st", self.region(bracketed[0]), "async", tag)
+        if spaces[1] == "shared":
+            return Access(ins, "ld", self.region(bracketed[1]), "async")
+        return None
+
     def accesses(self) -> Dict[int, Access]:
         out: Dict[int, Access] = {}
         shared = self.entry.shared_symbols
         for b in self.entry.blocks:
             for ins in b.instrs:
+                if ins.op.startswith(("cp.async", "cp.reduce.async")):
+                    a = self.async_access(ins)
+                    if a is not None:
+                        out[ins.line] = a
+                    continue
                 parts = ins.op.split(".")
                 base = parts[0]
                 if base not in ("ld", "st", "atom", "red", "ldu"):
@@ -516,7 +631,7 @@ class _Forms:
                 kind = {"ld": "ld", "ldu": "ld", "st": "st"}.get(base, "rmw")
                 region = (self.key_part(form)
                           if form is not None and len(syms) == 1
-                          and form[syms[0]] == 1 else None)
+                          and form[syms[0]] == 1 else self.selected(addr_arg))
                 out[ins.line] = Access(ins, kind, region)
         return out
 

@@ -17,6 +17,27 @@ A path whose only barrier is ``bar.warp.sync`` (``__syncwarp``) orders the
 lanes of one warp, not the block. It is accepted only for a kernel named
 in :data:`WARP_ORDERED`, with the reason the data it orders never leaves
 one warp; everywhere else it is an ERROR like a path with no barrier.
+
+Asynchronous copies (``build.py``: TMA, bulk copies, ``cp.async``) are
+ordered by mbarriers, not by CTA barriers, and a CTA barrier does not
+order them:
+
+* an async write into a region (a ring stage the copy engine fills) is
+  ordered before a later generic access only by a wait on the mbarrier it
+  completes on (``mbarrier.try_wait`` on a barrier of the same region; a
+  ``cp.async`` attached to none completes at ``cp.async.wait_group``, and
+  other lanes then need a CTA barrier). A stage read with no wait on its
+  barrier on the path is a RAW ERROR, whatever CTA barriers lie between.
+* a generic read of a region is ordered before a later async write into
+  it (the stage's reuse) by a CTA barrier, or by this thread's
+  ``mbarrier.arrive`` (the consumer's release, which the producer waits
+  on before it refills the stage). With neither, it is a WAR ERROR.
+* an async read (a bulk store out of shared memory) is ordered before a
+  later write of its region only by ``cp.async.bulk.wait_group``.
+
+Generic stores followed by an async write or read of the region need a CTA
+barrier as any other pair does. The generic-to-async proxy fence that such
+a pair also needs (``fence.proxy.async``) is not checked.
 """
 from __future__ import annotations
 
@@ -35,8 +56,11 @@ WARP_ORDERED: Dict[str, str] = {
         "block_q * 4, a multiple of 32)"),
 }
 
-#: pending access: (line, kind, region, ordered by a warp barrier since)
-_Pending = Tuple[int, str, object, bool]
+#: pending generic access: (line, kind, region, ordered by a warp barrier
+#: since, released by this thread's mbarrier arrive since)
+_Pending = Tuple[int, str, object, bool, bool]
+#: pending asynchronous copy: (line, "st" write / "ld" read, region, tag)
+_Async = Tuple[int, str, object, object]
 
 
 def _conflicts(a_kind: str, b_kind: str) -> str:
@@ -49,44 +73,117 @@ def _conflicts(a_kind: str, b_kind: str) -> str:
     return ""
 
 
+def _same(a, b) -> bool:
+    """Two regions may alias: equal, either unreadable, or one of a
+    ``selp``'s regions (a tuple) equal to one of the other's."""
+    if a is None or b is None:
+        return True
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    return any(x == y for x in a for y in b)
+
+
+def _after_async(x: _Async, a) -> str:
+    """The hazard of access ``a`` after pending async copy ``x``."""
+    _, kind, _, _ = x
+    if kind == "st":                       # async write pending
+        if a.proxy == "generic":
+            return "RAW" if a.kind in ("ld", "rmw") else "WAW"
+        return "RAW" if a.kind == "ld" else ""
+    if a.kind in ("st", "rmw"):            # async read pending
+        return "WAR"
+    return ""
+
+
+def _after_generic(p: _Pending, a) -> str:
+    """The hazard of access ``a`` after pending generic access ``p``."""
+    _, kind, _, _, released = p
+    if a.proxy == "generic":
+        return _conflicts(kind, a.kind)
+    if a.kind == "ld":                     # async read of generic data
+        return "RAW" if kind in ("st", "rmw") else ""
+    if kind == "ld":                       # the stage's reuse
+        return "" if released else "WAR"
+    return "WAW"
+
+
+def _sync(entry, ins, cur: Set[_Pending], asy: Set[_Async]):
+    """``(cur, asy)`` after an mbarrier or copy-group event, or None when
+    ``ins`` is none."""
+    ev = entry.sync_event(ins)
+    if ev is None:
+        return None
+    name, reg = ev
+    if name == "wait":
+        asy = {x for x in asy if not (x[1] == "st" and x[3] != "group"
+                                      and _same(x[3], reg))}
+    elif name == "arrive":
+        cur = {(ln, kd, rg, w, rel or kd == "ld")
+               for ln, kd, rg, w, rel in cur}
+    elif name == "attach":
+        asy = {(ln, kd, rg, reg if tag == "group" else tag)
+               for ln, kd, rg, tag in asy}
+    elif name == "group_wait":
+        done = {x for x in asy if x[3] == "group"}
+        asy = asy - done
+        cur = cur | {(ln, "st", rg, False, False) for ln, _, rg, _ in done}
+    elif name == "bulk_wait":
+        asy = {x for x in asy if x[1] != "ld"}
+    return cur, asy
+
+
 def hazards(entry) -> List[Tuple[int, int, str, bool]]:
-    """``(first line, second line, "RAW"/"WAR", warp-ordered)`` for every
-    pair of same-region shared accesses that some path joins without a
-    CTA barrier between them."""
+    """``(first line, second line, "RAW"/"WAR"/"WAW", warp-ordered)`` for
+    every pair of same-region shared accesses that some path joins without
+    what orders them (module docstring)."""
     acc = entry.accesses()
     n = len(entry.blocks)
     preds: List[List[int]] = [[] for _ in range(n)]
     for k, b in enumerate(entry.blocks):
         for s in b.succs:
             preds[s].append(k)
-    out_sets: List[Set[_Pending]] = [set() for _ in range(n)]
+    out_sets: List[Tuple[Set[_Pending], Set[_Async]]] = [
+        (set(), set()) for _ in range(n)]
     found: Set[Tuple[int, int, str, bool]] = set()
     changed = True
     while changed:
         changed = False
         for k, b in enumerate(entry.blocks):
             cur: Set[_Pending] = set()
+            asy: Set[_Async] = set()
             for p in preds[k]:
-                cur |= out_sets[p]
+                cur |= out_sets[p][0]
+                asy |= out_sets[p][1]
             for ins in b.instrs:
                 bar = entry.barrier(ins)
                 if bar == "cta":
                     cur = set()
                     continue
                 if bar == "warp":
-                    cur = {(ln, kd, rg, True) for ln, kd, rg, _ in cur}
+                    cur = {(ln, kd, rg, True, rel)
+                           for ln, kd, rg, _, rel in cur}
+                    continue
+                synced = _sync(entry, ins, cur, asy)
+                if synced is not None:
+                    cur, asy = synced
                     continue
                 a = acc.get(ins.line)
                 if a is None:
                     continue
-                for ln, kd, rg, warp in cur:
-                    kind = _conflicts(kd, a.kind)
-                    if kind and (rg is None or a.region is None
-                                 or rg == a.region):
-                        found.add((ln, ins.line, kind, warp))
-                cur = cur | {(ins.line, a.kind, a.region, False)}
-            if cur != out_sets[k]:
-                out_sets[k] = cur
+                for p in cur:
+                    kind = _after_generic(p, a)
+                    if kind and _same(p[2], a.region):
+                        found.add((p[0], ins.line, kind, p[3]))
+                for x in asy:
+                    kind = _after_async(x, a)
+                    if kind and _same(x[2], a.region):
+                        found.add((x[0], ins.line, kind, False))
+                if a.proxy == "generic":
+                    cur = cur | {(ins.line, a.kind, a.region, False, False)}
+                else:
+                    asy = asy | {(ins.line, a.kind, a.region, a.tag)}
+            if (cur, asy) != out_sets[k]:
+                out_sets[k] = (cur, asy)
                 changed = True
     return sorted(found)
 

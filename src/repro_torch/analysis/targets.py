@@ -4,9 +4,11 @@ reference's canonical geometry (``targets.py:27-31``: tile 256, window
 256, 4 windows, 2 tiles a window, seed 0).
 
 * Kernel targets (:class:`KernelTarget`) name one template instance of a
-  ``__global__`` function: the window tier and the global tier under each
-  (state width, counter width) pair, and flash attention under each
-  (dtype, head dim) the source builds. Each carries the dynamic shared
+  ``__global__`` function: the window tier, the first global tier and the
+  asynchronous global tier (its staged and its device-memory instance)
+  under each (state width, counter width) pair, the CUDA-core flash
+  attention under each (dtype, head dim) the source builds, and the
+  tensor-core flash attention under each head dim. Each carries the dynamic shared
   memory its launch wrapper requests at ``scale`` times the canonical
   vertex count, at the same window and tile — what ``smem-budget`` holds
   independent of V — and, for the matcher's tiers, a launcher that
@@ -112,6 +114,11 @@ def _matcher_targets() -> List[KernelTarget]:
                 return kernel.boundary_smem_bytes(
                     canonical_schedule(scale).tile_size)
 
+            def async_smem(scale, spec=spec, staged=True):
+                s = canonical_schedule(scale)
+                return kernel.boundary_async_smem_bytes(
+                    s.window, s.tile_size, spec, staged)
+
             out.append(KernelTarget(
                 name=f"window_tier[{vmem},{counter}]",
                 source=kernel.SOURCE, kernel=kernel.WINDOW_TIER,
@@ -129,7 +136,25 @@ def _matcher_targets() -> List[KernelTarget]:
                 smem_claim="O(9 * tile), independent of V: state stays in "
                            "device memory",
                 spec=spec,
-                launch=functools.partial(kernel.boundary_tier, spec=spec)))
+                launch=functools.partial(kernel.boundary_tier_sync,
+                                         spec=spec)))
+            for instance, flag in (("staged", "1"), ("device", "0")):
+                staged = instance == "staged"
+                out.append(KernelTarget(
+                    name=f"boundary_async[{vmem},{counter},{instance}]",
+                    source=kernel.SOURCE, kernel=kernel.BOUNDARY_ASYNC,
+                    template=tmpl + (flag,), role="boundary", threads=TILE,
+                    dynamic_smem=functools.partial(async_smem,
+                                                   staged=staged),
+                    smem_claim=(
+                        "O(2 * window * sizeof(S) + ring * 8 * tile), "
+                        "independent of V: the pair's two state rows and "
+                        "the ring of ids" if staged else
+                        "O(ring * 8 * tile), independent of V: the ring of "
+                        "ids; state stays in device memory"),
+                    spec=spec,
+                    launch=functools.partial(kernel.boundary_tier,
+                                             spec=spec, instance=instance)))
     return out
 
 
@@ -151,6 +176,14 @@ def _flash_targets() -> List[KernelTarget]:
                 dynamic_smem=smem,
                 smem_claim="O(block_k * D + block_q * block_k), independent "
                            "of S: one k and one v chunk and its scores"))
+    for d in flash.WGMMA_HEAD_DIMS:
+        out.append(KernelTarget(
+            name=f"flash_wgmma[bfloat16,{d}]", source=flash.WGMMA_SOURCE,
+            kernel=flash.FLASH_WGMMA, template=(str(d),), role="flash",
+            threads=3 * 128,
+            dynamic_smem=lambda scale, d=d: flash.wgmma_smem_bytes(d),
+            smem_claim="O(128 * D + 2 * stages * BK * D), independent of "
+                       "S: the Q tile and the ring of K and V chunks"))
     return out
 
 
@@ -191,7 +224,7 @@ def _run_flash_attention(device: torch.device) -> Dict[str, int]:
     kv = torch.randn((sh["b"], sh["hkv"], sh["s"], 128), generator=gen,
                      device=device, dtype=torch.bfloat16)
     _reset()
-    flash_attention(q, kv, kv, causal=True)
+    flash_attention(q, kv, kv, causal=True, device=device)
     torch.cuda.synchronize(device)  # host-sync: ok — counts after the run
     return _counts()
 
@@ -220,13 +253,15 @@ def _entry_targets() -> List[EntryTarget]:
 
     return [
         EntryTarget("skipper_match", _run_skipper_match,
-                    {kernel.WINDOW_TIER: 1, kernel.BOUNDARY: 1,
-                     flash.FLASH: 0}),
+                    {kernel.WINDOW_TIER: 1, kernel.BOUNDARY_ASYNC: 1,
+                     kernel.BOUNDARY: 0, flash.FLASH: 0,
+                     flash.FLASH_WGMMA: 0}),
         EntryTarget("flash_attention", _run_flash_attention,
-                    {flash.FLASH: 1, kernel.WINDOW_TIER: 0,
-                     kernel.BOUNDARY: 0}),
+                    {flash.FLASH_WGMMA: 1, flash.FLASH: 0,
+                     kernel.WINDOW_TIER: 0, kernel.BOUNDARY: 0,
+                     kernel.BOUNDARY_ASYNC: 0}),
         EntryTarget("serve_decode_step", _run_serve_decode_step,
-                    {flash.FLASH: 0}),
+                    {flash.FLASH: 0, flash.FLASH_WGMMA: 0}),
     ]
 
 

@@ -1,13 +1,20 @@
-"""Build, load and launch the hand-written flash attention CUDA kernel.
+"""Build, load and launch the hand-written flash attention CUDA kernels.
 
-``csrc/flash_attention.cu`` holds the kernel with a plain C interface; it is
-built and loaded through ``kernels/_build.py`` (nvcc for ``sm_90a`` into
-``build/repro_torch/``, ``ctypes``).
+Two sources, each with a plain C interface, built and loaded through
+``kernels/_build.py`` (nvcc for ``sm_90a`` into ``build/repro_torch/``,
+``ctypes``):
 
-:func:`flash_attention_cuda` launches ``flash_attention_kernel`` on the
-current stream for CUDA tensors. It checks device, dtype, shape, contiguity,
-the block geometry and the shared-memory size, raises on a launch error,
-and adds one to the launch count each time it launches the kernel.
+* ``csrc/flash_attention_wgmma.cu`` — ``flash_attention_wgmma_kernel``:
+  bf16 with head dim 64 or 128, on the tensor cores (wgmma), fed by TMA.
+* ``csrc/flash_attention.cu`` — ``flash_attention_kernel``: f32 FMA on the
+  CUDA cores, for f32 inputs (TF32 cannot hold f32's 2e-5) and for head
+  dim 80 (its 160-byte rows fit no 128-byte swizzle atom).
+
+:func:`flash_attention_cuda` picks one by dtype and head dim
+(:func:`kernel_for`) and launches it on the current stream for CUDA
+tensors. It checks device, dtype, shape, contiguity, the block geometry and
+the shared-memory size, raises on a launch error, and adds one to the
+launched kernel's count.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._build import MAX_SMEM_BYTES
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+WGMMA_SOURCE = SOURCE.with_name("flash_attention_wgmma.cu")
 
 HEAD_DIMS = (64, 80, 128)
 #: lanes that share one query row (``kLanesPerRow`` in the source)
@@ -28,8 +36,20 @@ LANES_PER_ROW = 4
 MAX_BLOCK_Q = 128
 
 FLASH = "flash_attention_kernel"
+FLASH_WGMMA = "flash_attention_wgmma_kernel"
+#: head dims of the tensor-core kernel (bf16 only)
+WGMMA_HEAD_DIMS = (64, 128)
+#: query rows of one tensor-core block (two consumer warpgroups), keys of
+#: one K/V chunk, and the chunks in its ring (``Geometry``, ``kStages``)
+WGMMA_BLOCK_Q = 128
+WGMMA_BLOCK_K = 64
+WGMMA_STAGES = 3
+#: bf16 terms the tensor-core kernel splits P into before the PV product
+#: (about 8 bits each): one or two leave the output more than one bf16
+#: step from the plain version where a row's terms cancel
+P_TERMS = 3
 
-_LAUNCHES: Dict[str, int] = {FLASH: 0}
+_LAUNCHES: Dict[str, int] = {FLASH: 0, FLASH_WGMMA: 0}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,7 +61,17 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    _LAUNCHES[FLASH] = 0
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
+
+
+def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel that runs ``dtype`` at ``head_dim``: the tensor-core
+    kernel for bf16 at head dim 64 or 128, the CUDA-core kernel
+    otherwise."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return FLASH_WGMMA
+    return FLASH
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -58,6 +88,30 @@ def _library() -> ctypes.CDLL:
     return _build.load(SOURCE, _declare)
 
 
+def _declare_wgmma(lib: ctypes.CDLL) -> None:
+    fn = lib.flash_attention_wgmma_bfloat16
+    fn.argtypes = [_VP] * 4 + [_I] * 5 + [ctypes.c_float] + [_I] * 3 + [_VP]
+    fn.restype = _I
+    lib.flash_attention_wgmma_smem_bytes.argtypes = [_I]
+    lib.flash_attention_wgmma_smem_bytes.restype = _I
+    lib.flash_attention_wgmma_error_string.argtypes = [_I]
+    lib.flash_attention_wgmma_error_string.restype = ctypes.c_char_p
+
+
+def _wgmma_library() -> ctypes.CDLL:
+    return _build.load(WGMMA_SOURCE, _declare_wgmma)
+
+
+def wgmma_smem_bytes(head_dim: int) -> int:
+    """Dynamic shared memory of one tensor-core block (the ``Geometry``
+    of the CUDA source): the 128-row Q tile, ``WGMMA_STAGES`` stages of a
+    K and a V chunk of ``WGMMA_BLOCK_K`` rows, the mbarriers (one for Q,
+    a full and an empty one a stage), and 1024 bytes to align the swizzle
+    atoms."""
+    return (2 * head_dim * (WGMMA_BLOCK_Q + WGMMA_STAGES * 2 * WGMMA_BLOCK_K)
+            + 8 * (1 + 2 * WGMMA_STAGES) + 1024)
+
+
 def smem_bytes(head_dim: int, block_q: int, block_k: int) -> int:
     """Dynamic shared memory of one block: a k chunk and a v chunk in f32,
     each row split into four quarters of ``D / 4`` floats plus one pad
@@ -72,13 +126,7 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool, window: int, sm_scale: float,
-                         block_q: int, block_k: int) -> torch.Tensor:
-    """Launch the kernel: q ``[B, Hq, S, D]``, k/v ``[B, Hkv, S, D]``, all
-    contiguous CUDA tensors of one dtype (f32 or bf16). Returns a new
-    ``[B, Hq, S, D]`` tensor of q's dtype. The shape checks common to both
-    paths are ``ops.flash_attention``'s."""
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for t in (q, k, v):
         _require(t.device.type == "cuda" and t.device == q.device,
                  "q, k and v must lie on one CUDA device")
@@ -86,6 +134,34 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _require(t.dtype == q.dtype, "q, k and v must share one dtype")
     _require(q.dtype in (torch.float32, torch.bfloat16),
              f"the kernel takes float32 or bfloat16, got {q.dtype}")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool, window: int, sm_scale: float,
+                         block_q: int, block_k: int) -> torch.Tensor:
+    """Launch the kernel :func:`kernel_for` names: q ``[B, Hq, S, D]``,
+    k/v ``[B, Hkv, S, D]``, all contiguous CUDA tensors of one dtype (f32
+    or bf16). Returns a new ``[B, Hq, S, D]`` tensor of q's dtype. The
+    shape checks common to both paths are ``ops.flash_attention``'s. The
+    tensor-core kernel tiles the sequence its own way; ``block_q`` and
+    ``block_k`` do not change the function (see its source note)."""
+    _check(q, k, v)
+    if kernel_for(q.dtype, q.shape[-1]) == FLASH_WGMMA:
+        return _launch_wgmma(q, k, v, causal=causal, window=window,
+                             sm_scale=sm_scale)
+    return flash_attention_cuda_cores(q, k, v, causal=causal, window=window,
+                                      sm_scale=sm_scale, block_q=block_q,
+                                      block_k=block_k)
+
+
+def flash_attention_cuda_cores(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, *, causal: bool, window: int,
+                               sm_scale: float, block_q: int,
+                               block_k: int) -> torch.Tensor:
+    """``flash_attention_kernel`` whatever the dtype: the kernel of f32 and
+    of D = 80, and, for bf16 at D = 64 or 128, the yardstick the
+    tensor-core kernel replaced."""
+    _check(q, k, v)
     b, hq, s, d = q.shape
     _require(block_q % 8 == 0 and block_q <= MAX_BLOCK_Q,
              f"the kernel needs block_q a multiple of 8 and at most "
@@ -107,4 +183,47 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         msg = _library().flash_attention_error_string(err).decode()
         raise RuntimeError(f"{FLASH} launch failed: CUDA error {err} ({msg})")
     _LAUNCHES[FLASH] += 1
+    return out
+
+
+def flash_attention_wgmma_p_terms(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, *, causal: bool,
+                                  window: int, sm_scale: float,
+                                  p_terms: int) -> torch.Tensor:
+    """The tensor-core kernel with P split into ``p_terms`` bf16 terms
+    (1 to 3; the entry point uses :data:`P_TERMS`): the measurement of why
+    the kernel splits P. bf16 CUDA tensors at head dim 64 or 128; nothing
+    on a path calls it."""
+    _check(q, k, v)
+    _require(kernel_for(q.dtype, q.shape[-1]) == FLASH_WGMMA,
+             "the tensor-core kernel takes bf16 at head dim 64 or 128")
+    _require(1 <= p_terms <= 3, f"p_terms must be 1, 2 or 3, got {p_terms}")
+    return _launch_wgmma(q, k, v, causal=causal, window=window,
+                         sm_scale=sm_scale, p_terms=p_terms)
+
+
+def _launch_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool, window: int, sm_scale: float,
+                  p_terms: int = P_TERMS) -> torch.Tensor:
+    b, hq, s, d = q.shape
+    for t in (q, k, v):
+        _require(t.data_ptr() % 16 == 0,
+                 "the tensor-core kernel's TMA loads need 16-byte aligned "
+                 "q, k and v")
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    lib = _wgmma_library()
+    _require(lib.flash_attention_wgmma_smem_bytes(d) == wgmma_smem_bytes(d),
+             "the wrapper's shared-memory size disagrees with the source's")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_attention_wgmma_bfloat16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
+        k.shape[1], s, d, float(sm_scale), int(causal), int(window),
+        int(p_terms), stream)
+    if err != 0:
+        msg = lib.flash_attention_wgmma_error_string(err).decode()
+        raise RuntimeError(f"{FLASH_WGMMA} launch failed: CUDA error {err} "
+                           f"({msg})")
+    _LAUNCHES[FLASH_WGMMA] += 1
     return out

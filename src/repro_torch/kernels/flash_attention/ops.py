@@ -3,10 +3,13 @@
 
 ``flash_attention(q, k, v, ...)`` takes the reference's layout, q
 ``[B, Hq, S, D]`` and k/v ``[B, Hkv, S, D]``, and returns ``[B, Hq, S, D]``
-in q's dtype. On CUDA tensors it launches the hand-written kernel
-(``kernel.flash_attention_cuda``) or raises; on CPU tensors it runs the
-plain online-softmax version (``ref.online_softmax_attention``). Nothing
-falls back from one to the other.
+in q's dtype. It runs on the card unless the caller asks for the CPU
+(``device="cpu"``), as the port's other entry points do. On the card it
+launches a hand-written kernel (``kernel.flash_attention_cuda``: the
+tensor-core kernel for bf16 at head dim 64 or 128, the CUDA-core kernel
+otherwise) or raises; on the CPU it runs the plain online-softmax version
+(``ref.online_softmax_attention``). Nothing falls back from one to the
+other.
 """
 from __future__ import annotations
 
@@ -31,12 +34,12 @@ def flash_attention(
 ) -> torch.Tensor:
     """Causal (or full) GQA attention with an optional sliding window.
 
-    ``device`` is where it runs: ``None`` means where ``q`` lies; otherwise
-    q, k and v are moved there first. Blocks are ``min(block, S)``, as in
+    ``device`` is where it runs: ``None`` means ``"cuda"`` and raises
+    ``RuntimeError`` without a card; q, k and v are moved there first. Blocks are ``min(block, S)``, as in
     the reference. Raises ``ValueError`` for a head dim outside
     ``{64, 80, 128}``, a sequence length that the blocks do not divide, or
     query heads that the kv heads do not divide."""
-    device = resolve_device(device, q.device, "flash_attention")
+    device = resolve_device(device, "cuda", "flash_attention")
     q, k, v = (t.to(device) for t in (q, k, v))
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError("q must be [B, Hq, S, D] and k, v one [B, Hkv, S, D]")

@@ -58,19 +58,67 @@ struct PairCell {
   }
 };
 
+// Scratch of the free-list blocked test: a count per warp and the free
+// lanes' u and v ids (T ints each), in arrays of their own.
+struct FreeList {
+  int* counts;
+  int* u;
+  int* v;
+};
+
+// Whether this lane's edge is blocked: some free j < l shares an endpoint.
+// The same predicate as match_tile's lane-by-lane scan, over the free
+// lanes only: the free lanes' ids are compacted, in lane order, into the
+// free list through warp ballots and a prefix over the warps, and a free
+// lane scans the entries before its own. Every lane of the block calls it
+// (two barriers inside).
+__device__ __forceinline__ bool blocked_by_free_list(bool fr, int uu, int vv,
+                                                     FreeList fl) {
+  const int l = threadIdx.x, T = blockDim.x, lane = l & 31, warp = l >> 5;
+  const int in_warp = min(T - (l & ~31), 32);
+  const unsigned mask = in_warp == 32 ? 0xffffffffu : (1u << in_warp) - 1u;
+  const unsigned ballot = __ballot_sync(mask, fr);
+  int* counts = fl.counts;
+  int* lu = fl.u;
+  int* lv = fl.v;
+  if (lane == 0) counts[warp] = __popc(ballot);
+  __syncthreads();  // every warp's count is visible
+  int rank = __popc(ballot & ((1u << lane) - 1u));
+  for (int w = 0; w < warp; ++w) rank += counts[w];
+  if (fr) {
+    lu[rank] = uu;
+    lv[rank] = vv;
+  }
+  __syncthreads();  // the list is complete
+  bool hit = false;
+  if (fr) {
+#pragma unroll 4
+    for (int i = 0; i < rank; ++i) {
+      const int a = lu[i], b = lv[i];
+      hit |= a == uu || a == vv || b == uu || b == vv;
+    }
+  }
+  return hit;
+}
+
 // One tile; lane = threadIdx.x, T = blockDim.x. tu/tv hold the tile's ids
 // (visible to every lane before the call), frs is T bytes of scratch.
+// With kFreeList the blocked test is blocked_by_free_list, on free_list;
+// without it, the lane-by-lane scan of frs.
 // Every lane returns together, after a barrier that follows its last read
-// of tu/tv/frs and its last state write.
-template <typename S, typename Cell>
-__device__ void match_tile(int uu, int vv, const int* tu, const int* tv,
-                           unsigned char* frs, Cell cell, int vector_rounds,
-                           bool fallback, bool& matched, int& conflicts) {
+// of tu/tv/frs/free_list and its last state write, with the number of
+// rounds in which some lane was free (the same in every lane).
+template <typename S, typename Cell, bool kFreeList = false>
+__device__ int match_tile(int uu, int vv, const int* tu, const int* tv,
+                          unsigned char* frs, Cell cell, int vector_rounds,
+                          bool fallback, bool& matched, int& conflicts,
+                          FreeList free_list = {}) {
   const int l = threadIdx.x;
   const bool valid = uu >= 0 && uu != vv;
   matched = false;
   conflicts = 0;
-  for (int r = 0;; ++r) {
+  int r = 0;
+  for (;; ++r) {
     if (!fallback && r >= vector_rounds) break;  // uniform over the block
     bool fr = false;
     if (valid && !matched) fr = *cell(uu) == 0 && *cell(vv) == 0;
@@ -78,7 +126,9 @@ __device__ void match_tile(int uu, int vv, const int* tu, const int* tv,
     // barrier: every lane's state reads and free flag precede any write
     if (!__syncthreads_or(fr)) break;
     bool blocked = false;
-    if (fr) {
+    if constexpr (kFreeList) {
+      blocked = blocked_by_free_list(fr, uu, vv, free_list);
+    } else if (fr) {
       for (int j = 0; j < l; ++j) {
         if (frs[j]) {
           const int a = tu[j], b = tv[j];
@@ -97,6 +147,7 @@ __device__ void match_tile(int uu, int vv, const int* tu, const int* tv,
     }
     __syncthreads();  // commits and frs reads precede the next round
   }
+  return r;
 }
 
 // Replaces src/repro/kernels/skipper_match/kernel.py::skipper_pipeline_kernel
@@ -175,6 +226,329 @@ __global__ void skipper_boundary_kernel(
   }
 }
 
+// ---- asynchronous copies (the global tier fed ahead of use) ----------------
+
+// the ring: kRing stages of kGroup consecutive tiles each
+constexpr int kGroup = 4;
+constexpr int kRing = 4;
+// counters of the asynchronous global tier's optional cycle profile
+constexpr int kProfileFields = 8;
+// the largest tile (threads a block) the kernels take
+constexpr int kMaxTile = 1024;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// 4 bytes global -> shared, asynchronously
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+// the barrier counts this lane's arrival once its earlier cp.async land
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::
+                   "l"(dst),
+               "r"(src), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// One ring stage holds kGroup consecutive tiles:
+// [blk_u: kGroup ints][blk_v: kGroup ints][u: kGroup * T ints][v: the same].
+// Consecutive tiles' ids and pairs are contiguous in device memory, so a
+// whole group arrives by four bulk copies.
+__host__ __device__ inline size_t ring_stage_bytes(int tile) {
+  return 8 * kGroup + 8 * size_t(kGroup) * tile;
+}
+
+// Dynamic shared memory of the asynchronous global tier:
+// [two state rows: 2 * window * sizeof(S), staged instance only]
+// [ring: kRing stages]. The free flags, the warp counts and the free
+// lists are static arrays of the kernel, sized for kMaxTile.
+template <typename S>
+__host__ __device__ inline size_t boundary_async_smem(int window, int tile,
+                                                      bool staged) {
+  return (staged ? 2 * size_t(window) * sizeof(S) : 0) +
+         kRing * ring_stage_bytes(tile);
+}
+
+// Lane 0 fills a ring stage with tile group g: a whole group by four bulk
+// copies (16-byte aligned: its first tile is a multiple of kGroup),
+// completing with their bytes on the stage's "full" barrier (arrival 1);
+// a last, partial group by 4-byte cp.async. Its cp.async arrive (arrival
+// 2) completes once those land.
+__device__ __forceinline__ void fill_group(unsigned char* stage, uint32_t bar,
+                                           const int* blk_u, const int* blk_v,
+                                           const int* u, const int* v, int g,
+                                           int num_tiles, int T) {
+  const int t0 = kGroup * g, n = min(kGroup, num_tiles - t0);
+  const uint32_t base = smem_addr(stage);
+  const uint32_t du = base + 8 * kGroup, dv = du + 4 * kGroup * T;
+  const size_t k0 = size_t(t0) * T;
+  if (n == kGroup) {
+    mbar_expect_tx(bar, uint32_t(ring_stage_bytes(T)));
+    bulk_load(base, blk_u + t0, 4 * kGroup, bar);
+    bulk_load(base + 4 * kGroup, blk_v + t0, 4 * kGroup, bar);
+    bulk_load(du, u + k0, 4 * kGroup * T, bar);
+    bulk_load(dv, v + k0, 4 * kGroup * T, bar);
+  } else {
+    mbar_expect_tx(bar, 0);
+    for (int i = 0; i < n; ++i) {
+      cp_async4(base + 4 * i, blk_u + t0 + i);
+      cp_async4(base + 4 * kGroup + 4 * i, blk_v + t0 + i);
+    }
+    for (int i = 0; i < n * T; ++i) {
+      cp_async4(du + 4 * i, u + k0 + i);
+      cp_async4(dv + 4 * i, v + k0 + i);
+    }
+  }
+  cp_async_arrive(bar);
+}
+
+// Replaces src/repro/kernels/skipper_match/kernel.py::skipper_boundary_kernel
+// (:196), as skipper_boundary_kernel did, with the same tile arithmetic
+// and the same result bit for bit: ONE block walks the global-tier tiles
+// in schedule order. It stays one block on purpose: on the full-scale RMAT
+// schedule the tiles' dependency chains leave no parallelism across blocks
+// (a host replay of the schedule: critical path 146,921 of 158,396 tiles
+// by block pair, 144,864 by exact vertex, 1.08x and 1.09x), and the result
+// must equal the serial order.
+// What it changes is what each tile waits for. Bound on this card: ~10
+// bytes a slot, but the limit is the latency chain of each tile, and that
+// kernel's chain began with device-memory loads of the ids and of the
+// pair's state cells. Here:
+//   * the ids come ahead of use: lane 0 fills a ring of kRing stages of
+//     kGroup tiles with bulk copies (fill_group), each completing on the
+//     stage's "full" mbarrier, so a tile waits on a barrier that completed
+//     long before. Each warp releases a stage on its "empty" mbarrier (one
+//     arrive a warp, after __syncwarp) when it is done with the stage's
+//     last tile; then lane 0 refills the stage of the group before, which
+//     every warp released a group earlier, with the group kRing - 1
+//     ahead;
+//   * the blocked test scans only the free lanes before a lane
+//     (blocked_by_free_list), not every earlier lane one shared-memory
+//     latency at a time: a tile has few free lanes, and the last of them
+//     set the tile's time;
+//   * kStaged: the pair's two state rows live in shared memory. Pairs come
+//     in lexicographic order (graphs/windows.py), so the u row changes at
+//     most num_windows times and the v row once a pair; a changed row is
+//     written back with a bulk store (after fence.proxy.async: its cells
+//     were last written by generic stores) and the new one loaded with a
+//     bulk copy that completes on an mbarrier. A same-block pair uses one
+//     row. Without kStaged (rows that do not fit beside the ring) the
+//     state stays in device memory, addressed as skipper_boundary_kernel
+//     does; the ring still feeds the ids.
+// profile (null unless asked for): thread 0's clock64 cycles over the tile
+// loop, summed over the tiles, into kProfileFields counters (the order of
+// kernel.py's PROFILE_FIELDS).
+template <typename S, typename C, bool kStaged>
+__global__ void skipper_boundary_async_kernel(
+    const int* __restrict__ blk_u, const int* __restrict__ blk_v,
+    const int* __restrict__ u, const int* __restrict__ v, S* state,
+    C* __restrict__ matched, C* __restrict__ conflicts, int window,
+    int num_tiles, int vector_rounds, int fallback,
+    unsigned long long* __restrict__ profile) {
+  __shared__ __align__(8) uint64_t full_bar[kRing];
+  __shared__ __align__(8) uint64_t empty_bar[kRing];
+  __shared__ __align__(8) uint64_t row_bar;
+  __shared__ unsigned char frs[kMaxTile];
+  __shared__ int warp_counts[32];
+  __shared__ int free_u[kMaxTile];
+  __shared__ int free_v[kMaxTile];
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int T = blockDim.x, l = threadIdx.x;
+  // scalars, not arrays: a small array indexed at run time would live in
+  // local memory
+  const size_t row_bytes = kStaged ? size_t(window) * sizeof(S) : 0;
+  const uint32_t rb = uint32_t(row_bytes);
+  unsigned char* const ring = smem + 2 * row_bytes;
+  const size_t stage_bytes = ring_stage_bytes(T);
+  const uint32_t bar0 = smem_addr(full_bar), ebar0 = smem_addr(empty_bar);
+  const uint32_t rbar = smem_addr(&row_bar);
+  const int warps = (T + 31) / 32;
+  // this lane's warp (the last one may be partial), for __syncwarp
+  const int in_warp = min(T - (l & ~31), 32);
+  const unsigned warp_mask =
+      in_warp == 32 ? 0xffffffffu : (1u << in_warp) - 1u;
+  if (l == 0) {
+    for (int i = 0; i < kRing; ++i) {
+      mbar_init(bar0 + 8 * i, 2);
+      mbar_init(ebar0 + 8 * i, warps);
+    }
+    mbar_init(rbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  const int num_groups = (num_tiles + kGroup - 1) / kGroup;
+  if (l == 0)
+    for (int g = 0; g < kRing && g < num_groups; ++g)
+      fill_group(ring + g * stage_bytes, bar0 + 8 * g, blk_u, blk_v, u, v, g,
+                 num_tiles, T);
+  int res0 = -1, res1 = -1;  // block held by each state slot (staged)
+  uint32_t row_phase = 0;
+  const bool timed = profile != nullptr && l == 0;
+  unsigned long long spans[kProfileFields] = {};
+  long long c0 = 0, c1 = 0, c2 = 0, c3 = 0;
+  for (int t = 0; t < num_tiles; ++t) {
+    if (timed) c0 = clock64();
+    const int g = t / kGroup, i = t % kGroup, st = g % kRing;
+    // a completed phase: every tile of the group waits, and passes
+    mbar_wait(bar0 + 8 * st, (g / kRing) & 1);
+    const int* grp = reinterpret_cast<const int*>(ring + st * stage_bytes);
+    const int* tu = grp + 2 * kGroup + i * T;
+    const int* tv = tu + kGroup * T;
+    const int bu = grp[i], bv = grp[kGroup + i];
+    if (timed) c1 = clock64();
+    const int uu = tu[l], vv = tv[l];
+    S* row_u;
+    S* row_v;
+    if constexpr (kStaged) {
+      // the pair's rows in the two slots; every lane decides alike
+      int su = res0 == bu ? 0 : res1 == bu ? 1 : -1;
+      int load0 = -1, load1 = -1;
+      if (su < 0) {
+        su = (bv != bu && res0 == bv) ? 1 : 0;
+        (su == 0 ? load0 : load1) = bu;
+      }
+      const int sv = bv == bu ? su : 1 - su;
+      if (bv != bu && (sv == 0 ? res0 : res1) != bv)
+        (sv == 0 ? load0 : load1) = bv;
+      if (load0 >= 0 || load1 >= 0) {
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        __syncthreads();  // every lane's state writes precede the stores
+        if (l == 0) {
+          if (load0 >= 0 && res0 >= 0)
+            bulk_store(state + size_t(res0) * window, smem_addr(smem), rb);
+          if (load1 >= 0 && res1 >= 0)
+            bulk_store(state + size_t(res1) * window, smem_addr(smem + rb),
+                       rb);
+          bulk_wait_all();  // written back before any row is read again
+          mbar_expect_tx(rbar, rb * ((load0 >= 0) + (load1 >= 0)));
+          if (load0 >= 0)
+            bulk_load(smem_addr(smem), state + size_t(load0) * window, rb,
+                      rbar);
+          if (load1 >= 0)
+            bulk_load(smem_addr(smem + rb), state + size_t(load1) * window,
+                      rb, rbar);
+        }
+        if (load0 >= 0) res0 = load0;
+        if (load1 >= 0) res1 = load1;
+        mbar_wait(rbar, row_phase);
+        row_phase ^= 1;
+      }
+      row_u = reinterpret_cast<S*>(smem + su * row_bytes);
+      row_v = reinterpret_cast<S*>(smem + sv * row_bytes);
+    } else {
+      row_u = state + size_t(bu) * window;
+      row_v = state + size_t(bv) * window;
+    }
+    const size_t k = size_t(t) * T + l;
+    bool m;
+    int c;
+    if (timed) c2 = clock64();
+    const int rounds = match_tile<S, PairCell<S>, true>(
+        uu, vv, tu, tv, frs, PairCell<S>{row_u, row_v, window},
+        vector_rounds, fallback != 0, m, c,
+        FreeList{warp_counts, free_u, free_v});
+    if (timed) c3 = clock64();
+    matched[k] = C(m);
+    conflicts[k] = C(c);
+    if (i == kGroup - 1) {
+      __syncwarp(warp_mask);  // the warp is done with the stage
+      if ((l & 31) == 0) {
+        mbar_arrive(ebar0 + 8 * st);
+        const int next = g - 1 + kRing;
+        if (l == 0 && g >= 1 && next < num_groups) {
+          const int sp = next % kRing;
+          mbar_wait(ebar0 + 8 * sp, ((g - 1) / kRing) & 1);
+          fill_group(ring + sp * stage_bytes, bar0 + 8 * sp, blk_u, blk_v, u,
+                     v, next, num_tiles, T);
+        }
+      }
+    }
+    if (timed) {
+      const long long c4 = clock64();
+      spans[0] += c1 - c0;  // the stage's barrier, the pair and ids
+      spans[1] += c2 - c1;  // the state rows (staged)
+      spans[2] += c3 - c2;  // the tile body
+      spans[3] += c4 - c3;  // counters, release, refill
+      if (rounds > 0) {     // tiles in which some lane was free
+        spans[4] += 1;
+        spans[5] += c3 - c2;
+        spans[6] += rounds;
+      }
+      spans[7] += c4 - c0;
+    }
+  }
+  if (timed)
+    for (int f = 0; f < kProfileFields; ++f) profile[f] = spans[f];
+  if constexpr (kStaged) {
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+    if (l == 0) {
+      if (res0 >= 0)
+        bulk_store(state + size_t(res0) * window, smem_addr(smem), rb);
+      if (res1 >= 0)
+        bulk_store(state + size_t(res1) * window, smem_addr(smem + rb), rb);
+      bulk_wait_all();
+    }
+  }
+}
+
 template <typename S, typename C>
 int launch_window_tier(const int* u, const int* v, const void* state_in,
                        void* state_out, void* matched, void* conflicts,
@@ -207,6 +581,29 @@ int launch_boundary(const int* blk_u, const int* blk_v, const int* u,
   return int(cudaGetLastError());
 }
 
+template <typename S, typename C>
+int launch_boundary_async(const int* blk_u, const int* blk_v, const int* u,
+                          const int* v, void* state, void* matched,
+                          void* conflicts, int num_tiles, int tile_size,
+                          int window, int vector_rounds, int fallback,
+                          int staged, int smem_bytes, void* profile,
+                          void* stream) {
+  if (size_t(smem_bytes) < boundary_async_smem<S>(window, tile_size, staged))
+    return int(cudaErrorInvalidValue);
+  if (staged && (size_t(window) * sizeof(S)) % 16 != 0)
+    return int(cudaErrorInvalidValue);  // bulk copies move 16-byte units
+  auto kernel = staged ? skipper_boundary_async_kernel<S, C, true>
+                       : skipper_boundary_async_kernel<S, C, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return int(err);
+  kernel<<<1, tile_size, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      blk_u, blk_v, u, v, static_cast<S*>(state), static_cast<C*>(matched),
+      static_cast<C*>(conflicts), window, num_tiles, vector_rounds, fallback,
+      static_cast<unsigned long long*>(profile));
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 // C entry points, one per (state width, counter width). Each returns the
@@ -230,6 +627,16 @@ int launch_boundary(const int* blk_u, const int* blk_v, const int* u,
     return launch_boundary<S, C>(blk_u, blk_v, u, v, state, matched,           \
                                  conflicts, num_tiles, tile_size, window,      \
                                  vector_rounds, fallback, stream);             \
+  }                                                                            \
+  extern "C" int skipper_boundary_async_##SN##_##CN(                           \
+      const int* blk_u, const int* blk_v, const int* u, const int* v,          \
+      void* state, void* matched, void* conflicts, int num_tiles,              \
+      int tile_size, int window, int vector_rounds, int fallback, int staged,  \
+      int smem_bytes, void* profile, void* stream) {                           \
+    return launch_boundary_async<S, C>(blk_u, blk_v, u, v, state, matched,     \
+                                       conflicts, num_tiles, tile_size,        \
+                                       window, vector_rounds, fallback,        \
+                                       staged, smem_bytes, profile, stream);   \
   }
 
 SKIPPER_ENTRY_POINTS(uint8, uint8_t, uint8, uint8_t)

@@ -8,8 +8,16 @@ Wrappers:
 
 * :func:`window_tier` — ``skipper_window_tier_kernel``: one block per
   schedule row, the row's state in shared memory.
-* :func:`boundary_tier` — ``skipper_boundary_kernel``: one persistent block
-  over the global-tier tiles in schedule order, state in device memory.
+* :func:`boundary_tier` — ``skipper_boundary_async_kernel``, the main
+  path's global tier: one persistent block over the global-tier tiles in
+  schedule order, the ids fed ahead of use through a ring of asynchronous
+  copies; its ``staged`` instance keeps the pair's two state rows in shared
+  memory, its ``device`` instance leaves the state in device memory. The
+  shape picks the instance (:func:`boundary_instance`).
+* :func:`boundary_tier_sync` — ``skipper_boundary_kernel``, the first
+  global tier (ids and state read from device memory on each tile's
+  chain), kept as the yardstick of the one above and as the body the
+  analyzer's canaries copy.
 
 Each wrapper takes CUDA tensors and launches its kernel on the current
 stream, or raises; given CPU tensors it runs the plain version from
@@ -35,8 +43,24 @@ MAX_THREADS = 1024
 
 WINDOW_TIER = "skipper_window_tier_kernel"
 BOUNDARY = "skipper_boundary_kernel"
+BOUNDARY_ASYNC = "skipper_boundary_async_kernel"
+#: the asynchronous global tier's ring: stages (``kRing``) of consecutive
+#: tiles (``kGroup``), each stage filled by bulk copies
+RING_STAGES = 4
+TILES_PER_STAGE = 4
+#: the two instances of the asynchronous global tier
+INSTANCES = ("staged", "device")
+#: static shared memory of the asynchronous global tier: its mbarriers and,
+#: sized for ``MAX_THREADS`` lanes, the free flags and the free list
+ASYNC_STATIC_SMEM = (8 * (2 * RING_STAGES + 1) + MAX_THREADS
+                     + 4 * (32 + 2 * MAX_THREADS))
+#: the counters of its optional cycle profile (``profile=`` of
+#: :func:`boundary_tier`): thread 0's clock64 cycles summed over the tiles
+PROFILE_FIELDS = ("wait_and_ids", "state_rows", "tile_body",
+                  "counters_release_refill", "free_tiles",
+                  "tile_body_in_free_tiles", "free_rounds", "total")
 
-_LAUNCHES: Dict[str, int] = {WINDOW_TIER: 0, BOUNDARY: 0}
+_LAUNCHES: Dict[str, int] = {WINDOW_TIER: 0, BOUNDARY: 0, BOUNDARY_ASYNC: 0}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -60,6 +84,9 @@ def _declare(lib: ctypes.CDLL) -> None:
             fn.restype = _I
             fn = getattr(lib, f"skipper_boundary_{s}_{c}")
             fn.argtypes = [_VP] * 7 + [_I] * 5 + [_VP]
+            fn.restype = _I
+            fn = getattr(lib, f"skipper_boundary_async_{s}_{c}")
+            fn.argtypes = [_VP] * 7 + [_I] * 7 + [_VP] * 2
             fn.restype = _I
     lib.skipper_error_string.argtypes = [_I]
     lib.skipper_error_string.restype = ctypes.c_char_p
@@ -89,6 +116,32 @@ def boundary_smem_bytes(tile_size: int) -> int:
     ids and free flags (``launch_boundary`` in the CUDA source requests
     ``9 * T``)."""
     return 9 * tile_size
+
+
+def boundary_async_smem_bytes(window: int, tile_size: int,
+                              spec: Optional[StateSpec] = None,
+                              staged: bool = True) -> int:
+    """Dynamic shared memory of the asynchronous global tier
+    (``boundary_async_smem`` in the CUDA source): the pair's two state
+    rows when ``staged``, then ``RING_STAGES`` stages of
+    ``TILES_PER_STAGE`` tiles' pairs and u and v ids. The kernel's static
+    arrays (:data:`ASYNC_STATIC_SMEM`) come on top."""
+    spec = resolve_spec(spec)
+    rows = 2 * window * spec.vmem_bytes if staged else 0
+    return rows + RING_STAGES * 8 * TILES_PER_STAGE * (1 + tile_size)
+
+
+def boundary_instance(window: int, tile_size: int,
+                      spec: Optional[StateSpec] = None) -> str:
+    """The instance of the asynchronous global tier that the shape takes:
+    ``"staged"`` when the pair's two state rows fit in shared memory beside
+    the ring and a row is a whole number of 16-byte bulk-copy units,
+    ``"device"`` otherwise (``legacy_i32()`` at large windows)."""
+    spec = resolve_spec(spec)
+    fits = (boundary_async_smem_bytes(window, tile_size, spec, True)
+            + ASYNC_STATIC_SMEM <= MAX_SMEM_BYTES)
+    return ("staged" if fits and window * spec.vmem_bytes % 16 == 0
+            else "device")
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -181,25 +234,10 @@ def window_tier(
     return states, matched, conflicts
 
 
-def boundary_tier(
-    state_rows: torch.Tensor,
-    blk_u: torch.Tensor,
-    blk_v: torch.Tensor,
-    u_tiles: torch.Tensor,
-    v_tiles: torch.Tensor,
-    *,
-    vector_rounds: int = 1,
-    fallback: bool = True,
-    spec: Optional[StateSpec] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Global tier: the block-pair grouped tiles in schedule order, against
-    ``state_rows`` spec.vmem[num_windows, window], updated **in place**.
-
-    blk_u, blk_v: int32[num_tiles] pair rows; u_tiles, v_tiles:
-    int32[num_tiles, T] offset-local ids (u in [0, W), v in [0, 2W)).
-    Returns ``(matched, conflicts)``, both spec.counter[num_tiles, T].
-    """
-    spec = resolve_spec(spec)
+def _boundary_args(state_rows, blk_u, blk_v, u_tiles, v_tiles, spec,
+                   vector_rounds):
+    """Checks common to both global-tier wrappers; returns
+    ``(num_tiles, tile_size, num_windows, window)``."""
     spec.validate_rounds(vector_rounds)
     _require(u_tiles.dim() == 2 and u_tiles.shape == v_tiles.shape,
              "u_tiles and v_tiles must be 2-D of one shape")
@@ -212,7 +250,53 @@ def boundary_tier(
     _require(state_rows.dim() == 2, "state_rows must be [num_windows, W]")
     _require(state_rows.dtype == spec.vmem_dtype,
              f"state_rows must be {spec.vmem_dtype} (spec.vmem)")
-    num_windows, window = state_rows.shape
+    return (num_tiles, tile_size) + tuple(state_rows.shape)
+
+
+def _check_boundary_ids(blk_u, blk_v, u_tiles, v_tiles, num_windows,
+                        window) -> None:
+    blocks_ok = ((blk_u >= 0) & (blk_u < num_windows) & (blk_v >= 0)
+                 & (blk_v < num_windows)).all()
+    ids_ok = _ids_ok(u_tiles, v_tiles, window, 2 * window) & blocks_ok
+    _require(bool(ids_ok),  # host-sync: ok — ids index device memory
+             f"ids out of range: u must lie in [0, {window}), v in "
+             f"[0, {2 * window}), padding is (-1, -1), pair blocks in "
+             f"[0, {num_windows})")
+
+
+def boundary_tier(
+    state_rows: torch.Tensor,
+    blk_u: torch.Tensor,
+    blk_v: torch.Tensor,
+    u_tiles: torch.Tensor,
+    v_tiles: torch.Tensor,
+    *,
+    vector_rounds: int = 1,
+    fallback: bool = True,
+    spec: Optional[StateSpec] = None,
+    instance: Optional[str] = None,
+    profile: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Global tier: the block-pair grouped tiles in schedule order, against
+    ``state_rows`` spec.vmem[num_windows, window], updated **in place**.
+
+    blk_u, blk_v: int32[num_tiles] pair rows; u_tiles, v_tiles:
+    int32[num_tiles, T] offset-local ids (u in [0, W), v in [0, 2W)).
+    Returns ``(matched, conflicts)``, both spec.counter[num_tiles, T].
+    On CUDA tensors it launches ``skipper_boundary_async_kernel``, in the
+    instance :func:`boundary_instance` picks for the shape; ``instance``
+    (``"staged"`` or ``"device"``) names one instead, and a staged instance
+    the shape does not fit raises. ``profile``, an int64 CUDA tensor of
+    ``len(PROFILE_FIELDS)`` elements, receives the tile loop's cycle
+    spans on thread 0 (see :data:`PROFILE_FIELDS`); it costs a few clock
+    reads a tile.
+    """
+    spec = resolve_spec(spec)
+    num_tiles, tile_size, num_windows, window = _boundary_args(
+        state_rows, blk_u, blk_v, u_tiles, v_tiles, spec, vector_rounds)
+    if instance is not None:
+        _require(instance in INSTANCES,
+                 f"instance must be one of {INSTANCES}, got {instance!r}")
     if state_rows.device.type == "cpu":
         from repro_torch.kernels.skipper_match.ref import ref_boundary_pass
 
@@ -221,18 +305,73 @@ def boundary_tier(
                                  fallback=fallback, spec=spec)
     _require(state_rows.device.type == "cuda",
              "tensors must be on CPU or CUDA")
+    fit = boundary_instance(window, tile_size, spec)
+    instance = instance or fit
+    _require(instance == "device" or fit == "staged",
+             f"the staged global tier needs the pair's two state rows "
+             f"({2 * window * spec.vmem_bytes} B) beside the ring in shared "
+             f"memory and 16-byte rows; window {window} at {spec.vmem} "
+             f"state and tile {tile_size} does not fit")
+    staged = instance == "staged"
+    for t in (blk_u, blk_v, u_tiles, v_tiles) + (
+            (state_rows,) if staged else ()):
+        _require(t.data_ptr() % 16 == 0,
+                 "the global tier's bulk copies need 16-byte aligned ids, "
+                 "pairs and (staged) state rows")
+    smem = boundary_async_smem_bytes(window, tile_size, spec, staged)
+    _require(smem + ASYNC_STATIC_SMEM <= MAX_SMEM_BYTES,
+             f"global tier needs {smem} B of shared memory (tile "
+             f"{tile_size}); a block has {MAX_SMEM_BYTES} B")
     matched = torch.empty(u_tiles.shape, dtype=spec.counter_dtype,
                           device=u_tiles.device)
     conflicts = torch.empty_like(matched)
     if num_tiles == 0:
         return matched, conflicts
-    blocks_ok = ((blk_u >= 0) & (blk_u < num_windows) & (blk_v >= 0)
-                 & (blk_v < num_windows)).all()
-    ids_ok = _ids_ok(u_tiles, v_tiles, window, 2 * window) & blocks_ok
-    _require(bool(ids_ok),  # host-sync: ok — ids index device memory
-             f"ids out of range: u must lie in [0, {window}), v in "
-             f"[0, {2 * window}), padding is (-1, -1), pair blocks in "
-             f"[0, {num_windows})")
+    _check_boundary_ids(blk_u, blk_v, u_tiles, v_tiles, num_windows, window)
+    if profile is not None:
+        _require(profile.device == u_tiles.device
+                 and profile.dtype == torch.int64
+                 and profile.shape == (len(PROFILE_FIELDS),),
+                 f"profile must be an int64 tensor of {len(PROFILE_FIELDS)} "
+                 "on the tiles' device")
+    fn = getattr(_library(),
+                 f"skipper_boundary_async_{spec.vmem}_{spec.counter}")
+    stream = torch.cuda.current_stream(u_tiles.device).cuda_stream
+    err = fn(blk_u.data_ptr(), blk_v.data_ptr(), u_tiles.data_ptr(),
+             v_tiles.data_ptr(), state_rows.data_ptr(), matched.data_ptr(),
+             conflicts.data_ptr(), num_tiles, tile_size, window,
+             vector_rounds, int(fallback), int(staged), smem,
+             None if profile is None else profile.data_ptr(), stream)
+    _check_launch(BOUNDARY_ASYNC, err)
+    _LAUNCHES[BOUNDARY_ASYNC] += 1
+    return matched, conflicts
+
+
+def boundary_tier_sync(
+    state_rows: torch.Tensor,
+    blk_u: torch.Tensor,
+    blk_v: torch.Tensor,
+    u_tiles: torch.Tensor,
+    v_tiles: torch.Tensor,
+    *,
+    vector_rounds: int = 1,
+    fallback: bool = True,
+    spec: Optional[StateSpec] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`boundary_tier`'s function through ``skipper_boundary_kernel``,
+    which reads each tile's ids and state cells from device memory on the
+    tile's chain. CUDA tensors only; nothing on the main path calls it."""
+    spec = resolve_spec(spec)
+    num_tiles, tile_size, num_windows, window = _boundary_args(
+        state_rows, blk_u, blk_v, u_tiles, v_tiles, spec, vector_rounds)
+    _require(state_rows.device.type == "cuda",
+             "boundary_tier_sync launches a CUDA kernel: CUDA tensors only")
+    matched = torch.empty(u_tiles.shape, dtype=spec.counter_dtype,
+                          device=u_tiles.device)
+    conflicts = torch.empty_like(matched)
+    if num_tiles == 0:
+        return matched, conflicts
+    _check_boundary_ids(blk_u, blk_v, u_tiles, v_tiles, num_windows, window)
     fn = getattr(_library(), f"skipper_boundary_{spec.vmem}_{spec.counter}")
     stream = torch.cuda.current_stream(u_tiles.device).cuda_stream
     err = fn(blk_u.data_ptr(), blk_v.data_ptr(), u_tiles.data_ptr(),

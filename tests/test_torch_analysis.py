@@ -365,6 +365,94 @@ def test_warp_barrier_is_accepted_only_by_name():
         if f.severity is Severity.ERROR]
 
 
+# Asynchronous copies: a ring stage filled by a bulk copy that completes on
+# ``full``; ``empty`` is its release; ``other`` another barrier.
+ASYNC_SHARED = (".extern .shared .align 16 .b8 smem[];\n"
+                ".shared .align 8 .b8 full[64];\n"
+                ".shared .align 8 .b8 empty[64];\n"
+                ".shared .align 8 .b8 other[8];")
+ASYNC_REGS = "\t.reg .b64 %rd<4>;\n\t.reg .pred %p<4>;\n"
+STAGE = ("\tmov.u32 %r2, smem;\n\tmov.u32 %r10, full;\n"
+         "\tmov.u32 %r11, empty;\n\tmov.u32 %r12, other;\n"
+         "\tld.param.u64 %rd1, [k_param_0];\n")
+FILL = ("\tcp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%r2], [%rd1], 256, [%r10];\n")
+WAIT_FULL = "\tmbarrier.try_wait.parity.shared::cta.b64 %p1, [%r10], %r3;\n"
+WAIT_OTHER = "\tmbarrier.try_wait.parity.shared::cta.b64 %p1, [%r12], %r3;\n"
+RELEASE = "\tmbarrier.arrive.shared::cta.b64 _, [%r11];\n"
+
+
+def _async_entry(body: str):
+    text = _ptx(ASYNC_REGS + STAGE + body, shared=ASYNC_SHARED)
+    return parse_ptx(text)["k"]
+
+
+@pytest.mark.parametrize("between,kinds", [
+    (WAIT_FULL, set()),                     # the stage's barrier waited
+    ("", {"RAW"}),                          # read with no wait
+    ("\tbar.sync 0;\n", {"RAW"}),           # a CTA barrier orders no copy
+    (WAIT_OTHER, {"RAW"}),                  # a wait on another barrier
+    ("\tbar.sync 0;\n" + WAIT_FULL, set()),
+])
+def test_async_fill_needs_a_wait_on_its_barrier(between, kinds):
+    entry = _async_entry(FILL + between + LOAD + "\tret;\n")
+    assert {k for _, _, k, _ in hazards(entry)} == kinds
+    errors = [f for f in SmemBarrier().check_kernel(
+        _artifact(entry, "skipper_boundary_async_kernel"))
+        if f.severity is Severity.ERROR]
+    assert bool(errors) == bool(kinds)
+
+
+@pytest.mark.parametrize("release,kinds", [
+    ("", {"WAR"}),                          # reused with no release
+    (RELEASE, set()),                       # the consumer's arrive
+    ("\tbar.sync 0;\n", set()),             # or a CTA barrier
+])
+def test_stage_reuse_needs_a_release(release, kinds):
+    """A ring: wait, read the stage, (release,) refill it, loop. The read
+    meets the next refill through the back-edge."""
+    loop = ("$L__BB0_1:\n" + WAIT_FULL + LOAD + release + FILL
+            + "\tsetp.lt.s32 %p2, %r5, 9;\n\t@%p2 bra $L__BB0_1;\n"
+            "\tret;\n")
+    entry = _async_entry(FILL + loop)
+    assert {k for _, _, k, _ in hazards(entry)} == kinds
+
+
+@pytest.mark.parametrize("body,kinds", [
+    # plain cp.async attached to the stage's barrier, then waited
+    ("\tcp.async.ca.shared.global [%r2], [%rd1], 4;\n"
+     "\tcp.async.mbarrier.arrive.noinc.shared::cta.b64 [%r10];\n"
+     + WAIT_FULL + LOAD, set()),
+    # completed by a group wait: other lanes' copies need a CTA barrier
+    ("\tcp.async.ca.shared.global [%r2], [%rd1], 4;\n"
+     "\tcp.async.commit_group;\n\tcp.async.wait_group 0;\n" + LOAD,
+     {"RAW"}),
+    ("\tcp.async.ca.shared.global [%r2], [%rd1], 4;\n"
+     "\tcp.async.commit_group;\n\tcp.async.wait_group 0;\n"
+     "\tbar.sync 0;\n" + LOAD, set()),
+    # a bulk store out of the region, then a generic store into it
+    ("\tcp.async.bulk.global.shared::cta.bulk_group [%rd1], [%r2], 256;\n"
+     "\tst.shared.u32 [%r2+4], %r1;\n", {"WAR"}),
+    ("\tcp.async.bulk.global.shared::cta.bulk_group [%rd1], [%r2], 256;\n"
+     "\tcp.async.bulk.commit_group;\n\tcp.async.bulk.wait_group 0;\n"
+     "\tst.shared.u32 [%r2+4], %r1;\n", set()),
+])
+def test_cp_async_groups_and_bulk_stores(body, kinds):
+    entry = _async_entry(body + "\tret;\n")
+    assert {k for _, _, k, _ in hazards(entry)} == kinds
+
+
+def test_entry_end_is_found_by_brace_depth():
+    """Inline asm opens scopes of its own; a closing brace at the start of
+    a line inside the body does not end the entry."""
+    body = ("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, "
+            "[%r10], %r3;\n}\n" + LOAD + "\tret;\n")
+    entry = _async_entry(FILL + body)
+    assert any(ins.op == "ld.shared.u32" for b in entry.blocks
+               for ins in b.instrs)
+    assert {k for _, _, k, _ in hazards(entry)} == set()
+
+
 # ------------------------------------------------------------------ 3 -----
 
 def _body(text: str, kernel_name: str):

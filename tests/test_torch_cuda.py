@@ -45,7 +45,9 @@ def test_skipper_match_kernels_equal_plain(cuda_device, spec, vector_rounds):
               with_conflicts=True, device=cuda_device)
     kernel.reset_launch_counts()
     rk, ck = skipper_match(g, backend="cuda", verify=True, **kw)
-    assert all(n == 1 for n in kernel.launch_counts().values())
+    assert kernel.launch_counts() == {kernel.WINDOW_TIER: 1,
+                                      kernel.BOUNDARY_ASYNC: 1,
+                                      kernel.BOUNDARY: 0}
     rp, cp = skipper_match(g, backend="torch", **kw)
     _same((rk.match_mask, rp.match_mask), (rk.state, rp.state), (ck, cp))
     assert_matching(g, rk.match_mask)
@@ -115,6 +117,107 @@ def test_kernels_reject_out_of_range_ids(cuda_device):
         kernel.window_tier(u, u + 1, st0, tile_size=64)
 
 
+# ----------------------------------------------- the asynchronous global tier --
+def _pairs_input(pairs, tile, window, seed):
+    """Global-tier tiles of the given (blk_u, blk_v) pairs: numpy-seeded
+    offset-local ids (v past W on a cross-block pair), a quarter padding,
+    and every tile's slot 0 on vertex 5 of its u row, so consecutive tiles
+    of one pair compete."""
+    rng = np.random.default_rng(seed)
+    bu = np.array([p[0] for p in pairs], np.int32)
+    bv = np.array([p[1] for p in pairs], np.int32)
+    u = rng.integers(0, window, (len(pairs), tile))
+    v = rng.integers(0, window, (len(pairs), tile)) + np.where(
+        (bu != bv)[:, None], window, 0)
+    u[:, 0] = 5
+    pad = rng.random(u.shape) < 0.25
+    pad[:, 0] = False
+    return (bu, bv, np.where(pad, -1, u).astype(np.int32),
+            np.where(pad, -1, v).astype(np.int32))
+
+
+#: pair sequences: below, at and above the ring's depth (8 tiles), with a
+#: same-block pair, single-tile pairs, a change of blk_u onto the previous
+#: v row, and a v row met again after another
+GLOBAL_TIER_CASES = {
+    "below_ring": [(0, 1), (0, 1), (1, 1)],
+    "at_ring": [(0, 0), (0, 1), (0, 1), (0, 2), (0, 3), (1, 1), (1, 2),
+                (2, 3)],
+    "above_ring": [(0, 0), (0, 1), (0, 1), (0, 1), (0, 3), (1, 1), (1, 2),
+                   (1, 2), (1, 3), (2, 2), (2, 3), (2, 3), (3, 3), (0, 2),
+                   (0, 1), (3, 3), (1, 3), (1, 3), (2, 3), (0, 0)],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", SPECS)
+@pytest.mark.parametrize("instance", ["staged", "device"])
+@pytest.mark.parametrize("tile", [64, 33])
+@pytest.mark.parametrize("case", sorted(GLOBAL_TIER_CASES))
+def test_async_global_tier_equals_plain_and_first_kernel(
+        cuda_device, spec, instance, tile, case):
+    """skipper_boundary_async_kernel, in both instances, bit for bit
+    against ref_boundary_pass and skipper_boundary_kernel: matched,
+    conflicts and the state rows. Tile 33 makes the ring's bulk copies
+    start off a 16-byte boundary (ragged ends by cp.async)."""
+    sp = getattr(StateSpec, spec)()
+    pairs = GLOBAL_TIER_CASES[case]
+    args = tuple(torch.from_numpy(a).to(cuda_device) for a in
+                 _pairs_input(pairs, tile, 256, len(pairs) + tile))
+    rng = np.random.default_rng(tile)
+    state = torch.from_numpy(np.where(rng.random((4, 256)) < 0.1, 2, 0)
+                             .astype(np.dtype(sp.vmem))).to(cuda_device)
+    rows_a, rows_s, rows_p = state.clone(), state.clone(), state.clone()
+    kernel.reset_launch_counts()
+    got = kernel.boundary_tier(rows_a, *args, spec=sp, instance=instance)
+    first = kernel.boundary_tier_sync(rows_s, *args, spec=sp)
+    want = ref.ref_boundary_pass(rows_p, *args, spec=sp)
+    torch.cuda.synchronize()
+    _same((rows_a, rows_p), (rows_s, rows_p), *zip(got, want),
+          *zip(first, want))
+    assert kernel.launch_counts()[kernel.BOUNDARY_ASYNC] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("instance", ["staged", "device"])
+def test_global_tier_profile_leaves_the_result(cuda_device, instance):
+    """The optional cycle profile fills its counters (every tile timed,
+    free tiles and their rounds counted) and changes no output."""
+    sp = StateSpec.u8()
+    pairs = GLOBAL_TIER_CASES["above_ring"]
+    args = tuple(torch.from_numpy(a).to(cuda_device) for a in
+                 _pairs_input(pairs, 64, 256, 3))
+    state = torch.zeros((4, 256), dtype=torch.uint8, device=cuda_device)
+    rows_a, rows_p = state.clone(), state.clone()
+    prof = torch.zeros(len(kernel.PROFILE_FIELDS), dtype=torch.int64,
+                       device=cuda_device)
+    got = kernel.boundary_tier(rows_a, *args, spec=sp, instance=instance,
+                               profile=prof)
+    want = ref.ref_boundary_pass(rows_p, *args, spec=sp)
+    torch.cuda.synchronize()
+    _same((rows_a, rows_p), *zip(got, want))
+    cyc = dict(zip(kernel.PROFILE_FIELDS, prof.tolist()))
+    assert cyc["total"] > 0 and 0 < cyc["free_tiles"] <= len(pairs)
+    assert cyc["free_rounds"] >= cyc["free_tiles"]
+    assert cyc["tile_body"] >= cyc["tile_body_in_free_tiles"]
+
+
+@pytest.mark.cuda
+def test_global_tier_instance_follows_the_shape(cuda_device):
+    """u8 state at window 65536 is staged; legacy_i32 there stays in
+    device memory, and asking it for the staged instance raises."""
+    i32 = StateSpec.legacy_i32()
+    rows = torch.zeros((2, 65536), dtype=torch.int32, device=cuda_device)
+    ids = torch.full((1, 256), -1, dtype=torch.int32, device=cuda_device)
+    blk = torch.zeros((1,), dtype=torch.int32, device=cuda_device)
+    assert kernel.boundary_instance(65536, 256, StateSpec.u8()) == "staged"
+    assert kernel.boundary_instance(65536, 256, i32) == "device"
+    kernel.boundary_tier(rows, blk, blk, ids, ids, spec=i32)
+    with pytest.raises(ValueError, match="staged"):
+        kernel.boundary_tier(rows, blk, blk, ids, ids, spec=i32,
+                             instance="staged")
+
+
 # ------------------------------------------------------- flash attention --
 # Tolerances as in chip_smoke.py: f32 2e-5 (sums in other orders), bf16
 # 2e-2 (each side rounds one f32 result to bf16).
@@ -128,6 +231,7 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     (1, 8, 1, 256, 128, False, 0, 128),
     (1, 6, 3, 384, 80, True, 100, 128),
     (1, 4, 2, 256, 64, False, 48, 32),
+    (1, 8, 2, 1024, 128, True, 256, 128),
 ])
 def test_flash_kernel_equal_plain(cuda_device, dtype, b, hq, hkv, s, d,
                                   causal, window, blk):
@@ -155,8 +259,13 @@ def test_flash_launch_count_and_bad_shapes(cuda_device):
     q = torch.randn((1, 2, 128, 64), device=cuda_device)
     flash.reset_launch_counts()
     flash_attention(q, q, q)
+    # CPU tensors go to the card unless the CPU is asked for
     flash_attention(q.cpu(), q.cpu(), q.cpu())
-    assert flash.launch_counts() == {flash.FLASH: 1}
+    flash_attention(q.cpu(), q.cpu(), q.cpu(), device="cpu")
+    assert flash.launch_counts() == {flash.FLASH: 2, flash.FLASH_WGMMA: 0}
+    qb = q.to(torch.bfloat16)
+    flash_attention(qb, qb, qb)
+    assert flash.launch_counts() == {flash.FLASH: 2, flash.FLASH_WGMMA: 1}
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q[..., :32], q[..., :32], q[..., :32])
     odd = torch.randn((1, 2, 12, 64), device=cuda_device)
@@ -165,7 +274,7 @@ def test_flash_launch_count_and_bad_shapes(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         t = q.transpose(2, 3).contiguous().transpose(2, 3)
         flash_attention(t, q, q)
-    assert flash.launch_counts() == {flash.FLASH: 1}
+    assert flash.launch_counts() == {flash.FLASH: 2, flash.FLASH_WGMMA: 1}
 
 
 @pytest.mark.cuda
@@ -203,7 +312,7 @@ def test_analyzer_clean_on_built_kernels(cuda_device):
 
     report = run_analysis()
     assert report.clean, report.render()
-    assert len(report.targets_analyzed) == 17
+    assert len(report.targets_analyzed) == 27
 
 
 @pytest.mark.cuda

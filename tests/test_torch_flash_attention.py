@@ -56,7 +56,8 @@ def test_flash_attention_sweep(dtype, b, hq, hkv, s, d, causal):
     tol = DTYPES[dtype][2]
     (jq, jk, jv), (tq, tk, tv) = both(inputs(b * 17 + s, b, hq, hkv, s, d),
                                       dtype)
-    got = flash_attention(tq, tk, tv, causal=causal, block_q=64, block_k=64)
+    got = flash_attention(tq, tk, tv, causal=causal, block_q=64, block_k=64,
+                          device="cpu")
     assert got.dtype == tq.dtype and got.shape == tq.shape
     want = jax_flash(jq, jk, jv, causal=causal, block_q=64, block_k=64)
     oracle = f32(jax_ref(jq, jk, jv, causal=causal))
@@ -78,7 +79,7 @@ def test_flash_attention_sliding_window(window, causal):
     (jq, jk, jv), (tq, tk, tv) = both(inputs(window, 1, 4, 2, 512, 64),
                                       "float32")
     got = flash_attention(tq, tk, tv, causal=causal, window=window,
-                          block_q=64, block_k=64).numpy()
+                          block_q=64, block_k=64, device="cpu").numpy()
     want = np.asarray(jax_flash(jq, jk, jv, causal=causal, window=window,
                                 block_q=64, block_k=64))
     oracle = np.asarray(jax_ref(jq, jk, jv, causal=causal, window=window))
@@ -107,7 +108,7 @@ def test_flash_attention_matches_model_attention():
                                       kv_chunk=64)
     kern_out = flash_attention(
         *(t.transpose(1, 2).contiguous() for t in (q, k, v)), causal=True,
-        block_q=64, block_k=64).transpose(1, 2)
+        block_q=64, block_k=64, device="cpu").transpose(1, 2)
     assert (model_out - kern_out).abs().max().item() < 1e-4
 
 
@@ -125,11 +126,12 @@ def test_kv_range_trimming():
 def test_online_twin_is_the_cpu_path_and_launches_nothing():
     _, (tq, tk, tv) = both(inputs(9, 1, 4, 2, 128, 64), "float32")
     kernel.reset_launch_counts()
-    got = flash_attention(tq, tk, tv, window=32, block_q=32, block_k=64)
+    got = flash_attention(tq, tk, tv, window=32, block_q=32, block_k=64,
+                          device="cpu")
     want = online_softmax_attention(tq, tk, tv, block_q=32, block_k=64,
                                     window=32)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert kernel.launch_counts() == {kernel.FLASH: 0}
+    assert kernel.launch_counts() == {kernel.FLASH: 0, kernel.FLASH_WGMMA: 0}
 
 
 @pytest.mark.parametrize("shape,kw,match", [
@@ -144,7 +146,7 @@ def test_unsupported_shapes_raise(shape, kw, match):
     q = torch.zeros(shape)
     k = torch.zeros((shape[0], hkv) + shape[2:])
     with pytest.raises(ValueError, match=match):
-        flash_attention(q, k, k, **kw)
+        flash_attention(q, k, k, device="cpu", **kw)
 
 
 def test_cuda_device_raises_without_a_card(monkeypatch):
@@ -160,3 +162,115 @@ def test_shared_memory_budget():
     for d in kernel.HEAD_DIMS:
         assert kernel.smem_bytes(d, 128, 128) <= kernel.MAX_SMEM_BYTES
     assert kernel.smem_bytes(64, 128, 128) == 4 * (2 * 128 * 68 + 128 * 129)
+
+
+def test_entry_point_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """``device=None`` means the card, as for ``skipper_match`` and
+    ``serve``: without one it raises, CPU tensors or not; ``device="cpu"``
+    runs the plain version and launches nothing."""
+    _, (tq, tk, tv) = both(inputs(11, 1, 2, 1, 64, 64), "float32")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        flash_attention(tq, tk, tv)
+    kernel.reset_launch_counts()
+    got = flash_attention(tq, tk, tv, device="cpu")
+    want = online_softmax_attention(tq, tk, tv, block_q=64, block_k=64)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert kernel.launch_counts() == {kernel.FLASH: 0, kernel.FLASH_WGMMA: 0}
+
+
+@pytest.mark.parametrize("dtype,d,name", [
+    (torch.bfloat16, 64, kernel.FLASH_WGMMA),
+    (torch.bfloat16, 128, kernel.FLASH_WGMMA),
+    (torch.bfloat16, 80, kernel.FLASH),
+    (torch.float32, 64, kernel.FLASH),
+    (torch.float32, 128, kernel.FLASH),
+])
+def test_kernel_dispatch_by_dtype_and_head_dim(dtype, d, name):
+    """bf16 at head dim 64 or 128 goes to the tensor cores; f32 (TF32
+    cannot hold 2e-5) and D = 80 (no 128-byte swizzle atom for 160-byte
+    rows) stay on the CUDA-core kernel."""
+    assert kernel.kernel_for(dtype, d) == name
+
+
+def test_tensor_core_kernel_shared_memory():
+    """The Q tile, three stages of a K and a V chunk of 64 rows, seven
+    mbarriers and 1 KB of alignment: independent of S, within one block's
+    shared memory."""
+    assert kernel.wgmma_smem_bytes(64) == 2 * 64 * (128 + 6 * 64) + 56 + 1024
+    assert kernel.wgmma_smem_bytes(128) == (2 * 128 * (128 + 6 * 64) + 56
+                                            + 1024)
+    assert all(kernel.wgmma_smem_bytes(d) <= kernel.MAX_SMEM_BYTES
+               for d in kernel.WGMMA_HEAD_DIMS)
+
+
+def bf16_step(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 numbers just above |x| (0 at 0), in f32."""
+    _, e = torch.frexp(x.float())
+    return torch.where(x == 0, 0.0,
+                       torch.ldexp(torch.ones_like(x, dtype=torch.float32),
+                                   e - 8))
+
+
+def tensor_core_arithmetic(q, k, v, *, causal, p_terms, block_q=128,
+                           block_k=64):
+    """The tensor-core kernel's arithmetic in plain PyTorch: f32 scores of
+    the bf16 tiles scaled in f32, the online softmax in f32, and each
+    chunk's P V with P as the sum of ``p_terms`` bf16 terms (P_1 = bf16(P),
+    P_2 = bf16(P - P_1), ...), added to the f32 accumulator as
+    ``acc * alpha + pv``."""
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    kk = k.float().repeat_interleave(group, dim=1)
+    vv = v.float().repeat_interleave(group, dim=1)
+    out = torch.empty_like(q)
+    for qi in range(s // block_q):
+        rows = slice(qi * block_q, (qi + 1) * block_q)
+        q_pos = torch.arange(qi * block_q, (qi + 1) * block_q)[:, None]
+        m = torch.full((b, hq, block_q), -1e30)
+        l = torch.zeros((b, hq, block_q))
+        acc = torch.zeros((b, hq, block_q, d))
+        for j in kv_range(qi, block_q, block_k, s, causal, 0):
+            cols = slice(j * block_k, (j + 1) * block_k)
+            sc = torch.einsum("bhqd,bhkd->bhqk", q[:, :, rows].float(),
+                              kk[:, :, cols]) * d ** -0.5
+            if causal:
+                kv_pos = torch.arange(j * block_k, (j + 1) * block_k)[None]
+                sc = torch.where(kv_pos <= q_pos, sc, -1e30)
+            m_new = torch.maximum(m, sc.amax(-1))
+            p = torch.exp(sc - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            p_mma, rest = torch.zeros_like(p), p
+            for _ in range(p_terms):
+                term = rest.to(torch.bfloat16).float()
+                p_mma, rest = p_mma + term, rest - term
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bhkd->bhqd", p_mma, vv[:, :, cols])
+            m = m_new
+        out[:, :, rows] = (acc / torch.where(l > 0, l, 1.0)[..., None]).to(
+            q.dtype)
+    return out
+
+
+@pytest.mark.parametrize("block", [32, 64, 128])
+def test_p_in_three_bf16_terms_keeps_one_bf16_step(block):
+    """Why the tensor-core kernel splits P: at granite's attention widths
+    (Hq 24, Hkv 8, D 64, S 1024, causal, bf16), P as three bf16 terms keeps
+    every output element within one bf16 step (+1e-6) of the plain version
+    at each block size, the criterion chip_smoke.py holds the kernel to; P
+    rounded once to bf16 does not. (Two terms pass at this size; on the
+    card they miss a few elements at prefill_32k and at mixtral's window,
+    where a row's few terms cancel.)"""
+    _, (tq, tk, tv) = both(inputs(1024, 1, 24, 8, 1024, 64), "bfloat16")
+    plain = online_softmax_attention(tq, tk, tv, block_q=block,
+                                     block_k=block, causal=True)
+    allowed = bf16_step(plain) + 1e-6
+
+    def within(p_terms):
+        got = tensor_core_arithmetic(tq, tk, tv, causal=True,
+                                     p_terms=p_terms)
+        return bool(((got.float() - plain.float()).abs() <= allowed).all())
+
+    assert within(kernel.P_TERMS)
+    assert not within(1)

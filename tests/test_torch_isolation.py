@@ -146,7 +146,8 @@ def test_cpu_default_backend_is_plain():
     r = skipper_match(path_graph(40), window=16, tile_size=8, device="cpu")
     assert int(r.match_mask.sum()) == 20
     assert kernel.launch_counts() == {kernel.WINDOW_TIER: 0,
-                                      kernel.BOUNDARY: 0}
+                                      kernel.BOUNDARY: 0,
+                                      kernel.BOUNDARY_ASYNC: 0}
 
 
 def _check_nvcc_command(source):
@@ -201,6 +202,19 @@ def test_ptx_command_keeps_the_target_and_flags():
 
 def test_flash_cuda_source_is_package_data():
     _check_package_data(flash_kernel.SOURCE)
+
+
+def test_tensor_core_flash_source_builds_like_the_rest():
+    """The wgmma kernel's source is package data and is built by the same
+    nvcc command (sm_90a, plain C interface, no -lcuda: the tensor map
+    encoder comes through the runtime's driver entry point)."""
+    _check_package_data(flash_kernel.WGMMA_SOURCE)
+    _check_nvcc_command(flash_kernel.WGMMA_SOURCE)
+    cmd = _build.nvcc_command(flash_kernel.WGMMA_SOURCE,
+                              _build.library_path(flash_kernel.WGMMA_SOURCE))
+    assert not any(c.startswith("-lcuda") for c in cmd)
+    text = flash_kernel.WGMMA_SOURCE.read_text()
+    assert "cudaGetDriverEntryPoint" in text and "__grid_constant__" in text
 
 
 def test_cuda_marker_registered():

@@ -229,3 +229,71 @@ def test_counters_and_result_types():
     assert int(r.counters.total_accesses) == int(
         r.counters.edge_reads + r.counters.state_loads
         + r.counters.state_stores)
+
+
+# ------------------------------------------------ the global tier's instance --
+@pytest.mark.parametrize("window,tile,spec,instance", [
+    (65536, 256, "u8", "staged"),          # the full-scale cell: 128 KB rows
+    (65536, 256, "legacy_i32", "device"),  # 512 KB of rows do not fit
+    (256, 256, "legacy_i32", "staged"),
+    (95056, 256, "u8", "staged"),          # the largest u8 window at tile 256
+    (95072, 256, "u8", "device"),
+    (8192, 1024, "legacy_i32", "staged"),
+    (16384, 1024, "legacy_i32", "device"),  # the largest ring beside the rows
+    (100, 32, "u8", "device"),             # 100 B rows: no whole 16-B units
+    (100, 32, "legacy_i32", "staged"),
+])
+def test_global_tier_instance_by_shape(window, tile, spec, instance):
+    """The asynchronous global tier keeps the pair's two state rows in
+    shared memory when they fit beside the ring and a row is a whole number
+    of 16-byte bulk-copy units; otherwise its state stays in device memory.
+    The choice depends on the window, the tile and the state width, never
+    on the number of vertices."""
+    from repro_torch.kernels.skipper_match import kernel
+
+    sp = getattr(StateSpec, spec)()
+    assert kernel.boundary_instance(window, tile, sp) == instance
+    staged = (kernel.boundary_async_smem_bytes(window, tile, sp, True)
+              + kernel.ASYNC_STATIC_SMEM)
+    assert (staged <= kernel.MAX_SMEM_BYTES) == (
+        instance == "staged" or window * sp.vmem_bytes % 16 != 0)
+
+
+def test_global_tier_shared_memory_layout():
+    """Dynamic: two state rows (staged only) and four ring stages of four
+    tiles' pairs and u and v ids. Static: nine mbarriers, and the free
+    flags and the free list (32 warp counts, the free lanes' u and v ids)
+    for the largest tile."""
+    from repro_torch.kernels.skipper_match import kernel
+
+    u8 = StateSpec.u8()
+    ring = 4 * (4 * 8 + 4 * 8 * 256)
+    assert kernel.boundary_async_smem_bytes(65536, 256, u8, True) == (
+        2 * 65536 + ring)
+    assert kernel.boundary_async_smem_bytes(65536, 256, u8, False) == ring
+    assert kernel.boundary_async_smem_bytes(
+        64, 33, u8, False) == 4 * (32 + 32 * 33)
+    assert kernel.ASYNC_STATIC_SMEM == 72 + 1024 + 4 * (32 + 2048)
+
+
+def test_global_tier_wrapper_on_the_cpu_runs_the_plain_version():
+    """On CPU tensors ``boundary_tier`` runs ``ref_boundary_pass`` whatever
+    instance is named; an unknown instance raises."""
+    from repro_torch.kernels.skipper_match import kernel, ref
+
+    sch = ops.build_window_schedule(_all_boundary()[1], 128, 64)
+    nb = sch.num_boundary_tiles
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32))  # noqa: E731
+    args = (put(sch.boundary_blk_u), put(sch.boundary_blk_v),
+            put(sch.boundary_ulocal).reshape(nb, 64),
+            put(sch.boundary_vlocal).reshape(nb, 64))
+    rows = torch.zeros((sch.num_windows, 128), dtype=torch.uint8)
+    want_rows = rows.clone()
+    want = ref.ref_boundary_pass(want_rows, *args)
+    for instance in (None, "staged", "device"):
+        got_rows = rows.clone()
+        got = kernel.boundary_tier(got_rows, *args, instance=instance)
+        assert torch.equal(got_rows, want_rows)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="instance"):
+        kernel.boundary_tier(rows.clone(), *args, instance="shared")

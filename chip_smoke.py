@@ -15,27 +15,35 @@ Phases (any failure raises and exits non-zero):
    PTX the same way; the build times and ptxas reports are printed, and
    the PTX must hold the instructions the redesigned kernels are built
    from (``wgmma.mma_async``, TMA with mbarrier completion, ``setmaxnreg``;
-   bulk and 4-byte asynchronous copies, mbarrier waits).
+   bulk and 4-byte asynchronous copies, mbarrier waits; and in each
+   instance of the asynchronous window tier its bulk copies in and out,
+   its cp.async fills, its mbarrier waits, the proxy fence and the
+   barrier-or of its dead-stage test).
 3. Kernel against plain version, on the card, bit for bit: the window
-   tier, the asynchronous global tier (the instance the shape picks, and
-   its device-memory instance where that is another) and the first global
-   tier, ``skipper_match`` and ``skipper_match_window`` against the plain
-   PyTorch versions of ``ref.py`` on the same CUDA tensors, under
-   ``StateSpec.u8()`` and ``legacy_i32()`` and ``vector_rounds`` 1 and 2,
-   on small schedules (RMAT scale 14, the pinned odd shapes, all-boundary,
-   same-block pairs, an empty global tier, a star, a path, and a stream
-   with duplicates and self-loops). Tolerance: exact equality. On the
-   RMAT scale-14 schedule, ``skipper_match_window`` (the window-tier
-   kernel with one row) is also timed beside its plain version and bound.
+   tiers (the asynchronous one and the first), the asynchronous global
+   tier (the instance the shape picks, and its device-memory instance
+   where that is another) and the first global tier, ``skipper_match``
+   and ``skipper_match_window`` against the plain PyTorch versions of
+   ``ref.py`` on the same CUDA tensors, under ``StateSpec.u8()`` and
+   ``legacy_i32()`` and ``vector_rounds`` 1 and 2, on small schedules
+   (RMAT scale 14, the pinned odd shapes, all-boundary, same-block pairs,
+   an empty global tier, a star, a path, and a stream with duplicates and
+   self-loops); ``skipper_match_window`` also against the first window
+   tier on the same row. Tolerance: exact equality. On the RMAT scale-14
+   schedule's first row, ``skipper_match_window`` (the window tier with
+   one row) is also timed beside the first window tier, its plain version
+   and bound.
 4. Full scale: Graph500 RMAT (scale 22, edge factor 16) with window 65536,
    tile 256, degree reordering, uint8 state, one vector round. The main
-   path runs once with the launch counts reset just before it (the window
-   tier and the asynchronous global tier, staged, must launch); then the
-   kernels and ``skipper_match`` are timed with CUDA events, the global
-   tiers in turns (first, asynchronous, asynchronous, first; then the
-   device-memory instance) with their time per tile, and once more with
-   the asynchronous tier's cycle profile on (where its tile loop spends
-   its cycles), each held bit for bit against the plain version on the
+   path runs once with the launch counts reset just before it (the
+   asynchronous window tier and the asynchronous global tier, staged,
+   must launch); then the kernels and ``skipper_match`` are timed with
+   CUDA events, the window tiers in turns (first, asynchronous,
+   asynchronous, first) with their time per tile, the global tiers in
+   turns (first, asynchronous, asynchronous, first; then the
+   device-memory instance) with theirs, and each asynchronous tier once
+   more with its cycle profile on (where its loop spends its cycles),
+   each held bit for bit against the one plain run of its tier on the
    same inputs, and the result must pass ``check_matching``, the
    state-domain check and the greedy certificate.
 4a. Analysis: the port's kernel conformance analyzer
@@ -59,8 +67,11 @@ Phases (any failure raises and exits non-zero):
    the path, the ``flash_attention`` entry point at granite's prefill_32k
    attention shape in bf16 and in f32, once with the launch counts reset
    just before it, and both kernels, the plain version and
-   ``scaled_dot_product_attention`` timed there; the kernels are held
-   against the plain version at that shape too, in bf16 and in f32.
+   ``scaled_dot_product_attention`` timed there in both dtypes (in f32
+   through its memory-efficient backend, on K and V repeated to the query
+   heads: its GQA form runs only in the flash and math backends, and the
+   math one would hold the 32K-square scores); the kernels and f32 SDPA
+   are held against the plain version at that shape too (2e-5 in f32).
 6. Serving: ``repro_torch.launch.serve.serve`` on granite-moe-3b-a800m at
    full width and depth (bf16, seeded weights, Skipper router), 8 requests
    on 4 slots, prompts of 512, 32 new tokens, twice. The first run records
@@ -83,6 +94,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -95,6 +107,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 REPLACES = {
     "skipper_window_tier_kernel":
+        "src/repro/kernels/skipper_match/kernel.py:158",
+    "skipper_window_async_kernel":
         "src/repro/kernels/skipper_match/kernel.py:158",
     "skipper_boundary_kernel":
         "src/repro/kernels/skipper_match/kernel.py:196",
@@ -109,9 +123,10 @@ SOURCE = "src/repro_torch/kernels/skipper_match/csrc/skipper_match.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FLASH_WGMMA_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention_wgmma.cu")
-WINDOW, BOUNDARY, ASYNC = ("skipper_window_tier_kernel",
-                           "skipper_boundary_kernel",
-                           "skipper_boundary_async_kernel")
+WINDOW, WINDOW_ASYNC, BOUNDARY, ASYNC = ("skipper_window_tier_kernel",
+                                         "skipper_window_async_kernel",
+                                         "skipper_boundary_kernel",
+                                         "skipper_boundary_async_kernel")
 MUTANT_SOURCE = "src/repro_torch/analysis/csrc/mutants.cu"
 
 
@@ -125,6 +140,16 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptx_entries(text: str, name: str):
+    """The bodies of the PTX entry functions whose mangled name holds
+    ``name``, each from its ``.entry`` line to the next one."""
+    parts = re.split(r"^(?=(?:\.visible\s+|\.weak\s+)?\.entry\s)", text,
+                     flags=re.M)
+    return [p for p in parts if p.lstrip().startswith((".entry", ".visible",
+                                                       ".weak"))
+            and name in p.split("(", 1)[0]]
 
 
 def cuda_time(fn, reps: int = 1):
@@ -270,24 +295,26 @@ def tier_inputs(s, dev):
 
 def compare_tiers(s, spec, vr, dev):
     """The tier kernels against their plain versions on the same CUDA
-    inputs: the window tier, the asynchronous global tier (the instance
-    the shape picks, and the device-memory one when that is not it) and
-    the first global tier. Returns the max_abs_err of the window tier and
-    of each global tier, by kernel name."""
+    inputs: the window tiers (the asynchronous one, which every phase-3
+    shape takes, and the first), the asynchronous global tier (the instance the shape picks, and
+    the device-memory one when that is not it) and the first global tier.
+    Returns the max_abs_err of each, by kernel name."""
     from repro_torch.kernels.skipper_match import kernel, ref
 
     x = tier_inputs(s, dev)
     state0 = torch.zeros((s.num_rows, s.window), dtype=spec.vmem_dtype,
                          device=dev)
     kw = dict(tile_size=s.tile_size, vector_rounds=vr, spec=spec)
-    k_out = kernel.window_tier(x["u2"], x["v2"], state0, **kw)
     p_out = ref.ref_window_tier(x["u2"], x["v2"], state0, **kw)
-    torch.cuda.synchronize()
-    err_w = max_err(*zip(k_out, p_out))
+    errs = {WINDOW: 0, WINDOW_ASYNC: 0, BOUNDARY: 0, ASYNC: 0}
+    for name, fn in ((WINDOW_ASYNC, kernel.window_tier),
+                     (WINDOW, kernel.window_tier_sync)):
+        k_out = fn(x["u2"], x["v2"], state0, **kw)
+        torch.cuda.synchronize()
+        errs[name] = max(errs[name], max_err(*zip(k_out, p_out)))
     flat = torch.zeros((s.num_windows, s.window), dtype=spec.vmem_dtype,
                        device=dev)
     flat[x["rows"]] = p_out[0]
-    errs = {WINDOW: err_w, BOUNDARY: 0, ASYNC: 0}
     if s.num_boundary_tiles:
         args = (x["blk_u"], x["blk_v"], x["bu"], x["bv"])
         fp = flat.clone()
@@ -305,10 +332,11 @@ def compare_tiers(s, spec, vr, dev):
 
 
 def compare_match(edges, s, spec, vr, dev):
-    """skipper_match and skipper_match_window, kernels against plain."""
+    """skipper_match and skipper_match_window, kernels against plain;
+    skipper_match_window also against the first window tier."""
     from repro_torch.core import check_matching, check_state_domain
     from repro_torch.kernels.skipper_match import (
-        skipper_match, skipper_match_window)
+        kernel, skipper_match, skipper_match_window)
 
     kw = dict(schedule=s, vector_rounds=vr, spec=spec, device=dev,
               with_conflicts=True)
@@ -332,11 +360,16 @@ def compare_match(edges, s, spec, vr, dev):
     u = put(s.u_tiles[0], dev)
     v = put(s.v_tiles[0], dev)
     wk = skipper_match_window(u, v, st0, s.tile_size, vr, backend="cuda",
-                              spec=spec)
+                              spec=spec, device=dev)
     wp = skipper_match_window(u, v, st0, s.tile_size, vr, backend="torch",
-                              spec=spec)
+                              spec=spec, device=dev)
+    first = kernel.window_tier_sync(
+        u.reshape(1, -1), v.reshape(1, -1),
+        st0.to(spec.vmem_dtype).reshape(1, -1), tile_size=s.tile_size,
+        vector_rounds=vr, spec=spec)
     torch.cuda.synchronize()
-    return max(err, max_err(*zip(wk, wp)))
+    return max(err, max_err(*zip(wk, wp)),
+               max_err(*zip(wp, (t[0] for t in first))))
 
 
 def phase_small(dev):
@@ -345,27 +378,33 @@ def phase_small(dev):
 
     from repro_torch.kernels.skipper_match import kernel
 
-    worst = {WINDOW: 0, BOUNDARY: 0, ASYNC: 0}
+    worst = {WINDOW: 0, WINDOW_ASYNC: 0, BOUNDARY: 0, ASYNC: 0}
     t0 = time.perf_counter()
     for label, edges, window, tile, reorder in small_cases():
         s = build_window_schedule(edges, window, tile, reorder=reorder)
         for spec_name in ("u8", "legacy_i32"):
             spec = getattr(StateSpec, spec_name)()
+            require(kernel.window_instance(window, tile, spec) == "async",
+                    f"{label}/{spec_name}: the shape does not take the "
+                    "asynchronous window tier")
             for vr in (1, 2):
                 errs = compare_tiers(s, spec, vr, dev)
                 err_m = compare_match(edges, s, spec, vr, dev)
                 log(f"  {label:>18} {spec_name:>10} rounds={vr} "
                     f"rows={s.num_rows}x{s.tiles_per_window} "
+                    f"ring={kernel.window_ring_stages(window, tile, spec)} "
                     f"global_tiles={s.num_boundary_tiles} "
                     f"{kernel.boundary_instance(window, tile, spec)} "
-                    f"err window={errs[WINDOW]} global={errs[ASYNC]} "
+                    f"err window={errs[WINDOW_ASYNC]} "
+                    f"first_window={errs[WINDOW]} global={errs[ASYNC]} "
                     f"first_global={errs[BOUNDARY]} match={err_m}")
                 require(max(errs.values()) == 0 and err_m == 0,
                         f"{label}/{spec_name}/rounds={vr}: kernel and plain "
                         "version disagree")
-                for name in (WINDOW, ASYNC):   # the two on skipper_match
+                for name in (WINDOW_ASYNC, ASYNC):  # on skipper_match
                     worst[name] = max(worst[name], errs[name], err_m)
-                worst[BOUNDARY] = max(worst[BOUNDARY], errs[BOUNDARY])
+                for name in (WINDOW, BOUNDARY):
+                    worst[name] = max(worst[name], errs[name])
         if label == "rmat14":
             time_match_window(s, dev)
     log(f"phase 3 passed in {time.perf_counter() - t0:.1f} s")
@@ -373,11 +412,12 @@ def phase_small(dev):
 
 
 def time_match_window(s, dev) -> None:
-    """``skipper_match_window`` (the window-tier kernel launched with one
-    row, the port of ``skipper_window_kernel``) on the schedule's first
-    row from an all-ACC state, u8, one vector round: launches on its path,
-    kernel and plain times, and the byte bound (ids in, state in and out,
-    matched and conflicts out)."""
+    """``skipper_match_window`` (the window tier launched with one row, the
+    port of ``skipper_window_kernel``) on the schedule's first row from an
+    all-ACC state, u8, one vector round: launches on its path, its time
+    and the first window tier's in turns (first, new, new, first), the
+    plain time, and the byte bound (ids in, state in and out, matched and
+    conflicts out)."""
     from repro_torch.kernels.skipper_match import kernel, skipper_match_window
     from repro_torch.roofline import h100
 
@@ -386,21 +426,32 @@ def time_match_window(s, dev) -> None:
     kernel.reset_launch_counts()
     skipper_match_window(u, v, st0, s.tile_size, 1)
     torch.cuda.synchronize()
-    launches = kernel.launch_counts()["skipper_window_tier_kernel"]
-    require(launches == 1, f"skipper_match_window launched {launches}")
-    ms, got = cuda_time(lambda: skipper_match_window(
-        u, v, st0, s.tile_size, 1, backend="cuda"), reps=3)
+    launches = kernel.launch_counts()
+    require(launches[WINDOW_ASYNC] == 1 and launches[WINDOW] == 0,
+            f"skipper_match_window launched {launches}")
     plain_ms, want = cuda_time(lambda: skipper_match_window(
-        u, v, st0, s.tile_size, 1, backend="torch"))
-    err = max_err(*zip(got, want))
-    require(err == 0, "skipper_match_window: kernel and plain disagree")
+        u, v, st0, s.tile_size, 1, backend="torch", device=dev))
+    runs = {
+        WINDOW: lambda: tuple(t[0] for t in kernel.window_tier_sync(
+            u.reshape(1, -1), v.reshape(1, -1), st0.reshape(1, -1),
+            tile_size=s.tile_size)),
+        WINDOW_ASYNC: lambda: skipper_match_window(
+            u, v, st0, s.tile_size, 1, backend="cuda", device=dev)}
+    times, err = {WINDOW: [], WINDOW_ASYNC: []}, 0
+    for name in (WINDOW, WINDOW_ASYNC, WINDOW_ASYNC, WINDOW):
+        ms, got = cuda_time(runs[name], reps=3)
+        times[name].append(ms)
+        err = max(err, max_err(*zip(got, want)))
+    require(err == 0, "skipper_match_window: a kernel and plain disagree")
     nbytes = 8 * u.numel() + 2 * s.window + 2 * u.numel()
     log("skipper_match_window metrics: " + json.dumps({
         "schedule": f"rmat14 row 0, window {s.window}, "
                     f"{s.tiles_per_window} tiles of {s.tile_size}",
-        "launches_on_path": launches, "kernel_ms": ms, "plain_ms": plain_ms,
-        "bound_ms": h100.bytes_ms(nbytes), "bound_by": "bytes",
-        "max_abs_err": err}))
+        "launches_on_path": launches[WINDOW_ASYNC],
+        "kernel_ms": min(times[WINDOW_ASYNC]),
+        "first_kernel_ms": min(times[WINDOW]), "turns_ms": times,
+        "plain_ms": plain_ms, "bound_ms": h100.bytes_ms(nbytes),
+        "bound_by": "bytes", "max_abs_err": err}))
 
 
 def phase_full(dev, seed: int, scale: int, worst):
@@ -443,8 +494,10 @@ def phase_full(dev, seed: int, scale: int, worst):
     peak = torch.cuda.max_memory_allocated()
     log(f"main path: {first_s:.3f} s (first call), launches {launches}, "
         f"peak device memory {peak} B")
-    require(launches[WINDOW] > 0 and launches[ASYNC] > 0,
+    require(launches[WINDOW_ASYNC] > 0 and launches[ASYNC] > 0,
             f"a kernel of the main path was not launched: {launches}")
+    require(kernel.window_instance(window, tile, spec) == "async",
+            "the full-scale window tier is not the asynchronous kernel")
     require(kernel.boundary_instance(window, tile, spec) == "staged",
             "the full-scale global tier is not the staged instance")
 
@@ -480,16 +533,64 @@ def phase_full(dev, seed: int, scale: int, worst):
     state0 = torch.zeros((s.num_rows, window), dtype=spec.vmem_dtype,
                          device=dev)
     kw = dict(tile_size=tile, vector_rounds=vr, spec=spec)
-    w_ms, w_out = cuda_time(
-        lambda: kernel.window_tier(x["u2"], x["v2"], state0, **kw), reps=2)
     wp_ms, wp_out = cuda_time(
         lambda: ref.ref_window_tier(x["u2"], x["v2"], state0, **kw))
-    err_w = max_err(*zip(w_out, wp_out))
-    log(f"window tier: kernel {w_ms:.3f} ms, plain {wp_ms:.1f} ms, "
-        f"max_abs_err {err_w}")
+    # the window tiers in turns (first, async, async, first), each held
+    # bit for bit against the one plain run
+    w_fns = {WINDOW: kernel.window_tier_sync, WINDOW_ASYNC: kernel.window_tier}
+    w_times, err_w = {WINDOW: [], WINDOW_ASYNC: []}, {WINDOW: 0,
+                                                     WINDOW_ASYNC: 0}
+    for name in (WINDOW, WINDOW_ASYNC, WINDOW_ASYNC, WINDOW):
+        ms, w_out = cuda_time(lambda: w_fns[name](x["u2"], x["v2"], state0,
+                                                  **kw))
+        w_times[name].append(ms)
+        err_w[name] = max(err_w[name], max_err(*zip(w_out, wp_out)))
+        del w_out
+    w_ms = {name: min(t) for name, t in w_times.items()}
+    nw = s.num_rows * s.tiles_per_window
+    for name, ms in w_ms.items():
+        log(f"window tier {name}: {ms:.3f} ms ({w_times[name]}), "
+            f"{1e3 * ms / nw:.4f} us a tile over {nw} tiles, max_abs_err "
+            f"against plain {err_w[name]}")
+    log(f"window tier plain: {wp_ms:.1f} ms")
+    # once more with the asynchronous window tier's cycle profile on
+    # (thread 0's clock64 spans over the stage loop), also held against the
+    # plain version
+    wprof = torch.zeros(len(kernel.WINDOW_PROFILE_FIELDS), dtype=torch.int64,
+                        device=dev)
+    wprof_ms, w_out = cuda_time(lambda: kernel.window_tier(
+        x["u2"], x["v2"], state0, **kw, profile=wprof))
+    err_w["profiled"] = max_err(*zip(w_out, wp_out))
+    del w_out
+    wc = dict(zip(kernel.WINDOW_PROFILE_FIELDS, wprof.tolist()))
+    stages_run = -(-s.tiles_per_window // kernel.WINDOW_STAGE_TILES) \
+        * s.num_rows
+    window_profile = {
+        "profiled_ms": wprof_ms,
+        "cycles_per_us": wc["total"] / (wprof_ms * 1e3),
+        "ring_stages": kernel.window_ring_stages(window, tile, spec),
+        "stage_tiles": kernel.WINDOW_STAGE_TILES, "stages": stages_run,
+        **{f"{f}_cycles_per_tile": wc[f] / nw for f in
+           ("stage_wait", "dead_test", "tile_mask", "tile_body",
+            "counters_release_refill", "refill", "total")},
+        "dead_stages": wc["dead_stages"],
+        "dead_stage_share": wc["dead_stages"] / stages_run,
+        "walked_tiles": wc["walked_tiles"],
+        "free_tiles": wc["free_tiles"],
+        "free_tile_share": wc["free_tiles"] / nw,
+        "tile_body_cycles_per_walked_tile": wc["tile_body"]
+        / max(wc["walked_tiles"], 1),
+        "tile_body_cycles_per_free_tile": wc["tile_body_in_free_tiles"]
+        / max(wc["free_tiles"], 1),
+        "stage_cycles_per_stage": (wc["stage_wait"] + wc["dead_test"]
+                                   + wc["counters_release_refill"])
+        / stages_run,
+        "cycles": wc,
+    }
+    log("window tier profile: " + json.dumps(window_profile))
     flat = torch.zeros((s.num_windows, window), dtype=spec.vmem_dtype,
                        device=dev)
-    flat[x["rows"]] = w_out[0]
+    flat[x["rows"]] = wp_out[0]
     args = (x["blk_u"], x["blk_v"], x["bu"], x["bv"])
     fp = flat.clone()
     bp_ms, bp_out = cuda_time(lambda: ref.ref_boundary_pass(
@@ -541,9 +642,11 @@ def phase_full(dev, seed: int, scale: int, worst):
         "free_rounds_per_free_tile": cyc["free_rounds"] / free,
     }
     log("global tier profile: " + json.dumps(tile_profile))
-    require(err_w == 0 and max(err_b.values()) == 0,
+    require(max(err_w.values()) == 0 and max(err_b.values()) == 0,
             "full scale: a kernel and its plain version disagree")
-    worst[WINDOW] = max(worst[WINDOW], err_w)
+    worst[WINDOW] = max(worst[WINDOW], err_w[WINDOW])
+    worst[WINDOW_ASYNC] = max(worst[WINDOW_ASYNC], err_w[WINDOW_ASYNC],
+                              err_w["profiled"])
     worst[ASYNC] = max(worst[ASYNC], err_b[ASYNC], err_b["device instance"],
                        err_b["profiled"])
     worst[BOUNDARY] = max(worst[BOUNDARY], err_b[BOUNDARY])
@@ -552,7 +655,13 @@ def phase_full(dev, seed: int, scale: int, worst):
         "skipper_match_ms_events": match_ms,
         "skipper_match_wall_s": wall_s,
         "medges_per_s": s.num_valid / (match_ms * 1e-3) / 1e6,
-        "window_tier_ms": w_ms, "global_tier_ms": b_ms[ASYNC],
+        "window_tier_ms": w_ms[WINDOW_ASYNC],
+        "window_tier_us_per_tile": 1e3 * w_ms[WINDOW_ASYNC] / nw,
+        "first_window_tier_ms": w_ms[WINDOW],
+        "first_window_tier_us_per_tile": 1e3 * w_ms[WINDOW] / nw,
+        "window_tier_speedup": w_ms[WINDOW] / w_ms[WINDOW_ASYNC],
+        "window_tier_profile": window_profile,
+        "global_tier_ms": b_ms[ASYNC],
         "global_tier_us_per_tile": 1e3 * b_ms[ASYNC] / nb,
         "first_global_tier_ms": b_ms[BOUNDARY],
         "first_global_tier_us_per_tile": 1e3 * b_ms[BOUNDARY] / nb,
@@ -564,12 +673,14 @@ def phase_full(dev, seed: int, scale: int, worst):
     }
     log("full-scale metrics: " + json.dumps(metrics))
     log("bound_ms counts the bytes each kernel must move at 3.35 TB/s; the "
-        "serial chain of tiles in one block, not bytes, limits all three")
+        "serial chain of tiles in one block, not bytes, limits all four")
     bounds = {WINDOW: h100.window_bytes(s, spec),
+              WINDOW_ASYNC: h100.window_bytes(s, spec),
               BOUNDARY: h100.boundary_bytes(s, spec),
               ASYNC: h100.boundary_bytes(s, spec)}
-    times = {WINDOW: (w_ms, wp_ms), BOUNDARY: (b_ms[BOUNDARY], bp_ms),
-             ASYNC: (b_ms[ASYNC], bp_ms)}
+    times = {WINDOW: (w_ms[WINDOW], wp_ms),
+             WINDOW_ASYNC: (w_ms[WINDOW_ASYNC], wp_ms),
+             BOUNDARY: (b_ms[BOUNDARY], bp_ms), ASYNC: (b_ms[ASYNC], bp_ms)}
     entries = [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[name], "launches": launches[name],
@@ -577,10 +688,11 @@ def phase_full(dev, seed: int, scale: int, worst):
          "plain_ms": times[name][1],
          "bound_ms": h100.bytes_ms(bounds[name]),
          "bound_by": "bytes", "library_ms": None}
-        for name in (WINDOW, ASYNC, BOUNDARY)]
-    # the first global tier left the main path: the yardstick of its
-    # replacement, and the body the analyzer's canaries copy
-    entries[-1]["status"] = "superseded"
+        for name in (WINDOW_ASYNC, ASYNC, WINDOW, BOUNDARY)]
+    # the first tiers left the main path: the yardsticks of their
+    # replacements, and the bodies the analyzer's canaries copy
+    for e in entries[2:]:
+        e["status"] = "superseded"
     return entries
 
 
@@ -857,18 +969,35 @@ def phase_flash(dev, seed: int):
             step_misses(one, plain))
         del one
     bound, bound_by = h100.flash_bound_ms(w["b"], w["hq"], w["hkv"], s,
-                                          w["d"], 2)
+                                          w["d"], "bfloat16")
     del q, k, v, got, old, lib, plain
-    # the same shape in f32, held at 2e-5
+    # the same shape in f32, held at 2e-5: the CUDA-core kernel, the plain
+    # version and SDPA (memory-efficient backend, K and V repeated to the
+    # query heads; see the module docstring), all on the same inputs
     f32_ms, got = cuda_time(lambda: kernel.flash_attention_cuda(
         q32, k32, v32, **kw, **blocks))
-    plain = online_softmax_attention(q32, k32, v32, block_q=128,
-                                     block_k=128, causal=True)
+    plain32_ms, plain = cuda_time(lambda: online_softmax_attention(
+        q32, k32, v32, block_q=128, block_k=128, causal=True))
     err_f32, ok = compare_flash(got, plain)
     require(ok, f"prefill_32k f32: kernel and plain version disagree "
             f"({err_f32}, tolerance 2e-5)")
     worst[kernel.FLASH] = max(worst[kernel.FLASH], err_f32)
-    del q32, k32, v32, got, plain
+    del got
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    k32r, v32r = (t.repeat_interleave(w["hq"] // w["hkv"], 1)
+                  for t in (k32, v32))
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        cuda_time(lambda: F.scaled_dot_product_attention(
+            q32, k32r, v32r, is_causal=True))                 # warm-up
+        lib32_ms, lib32 = cuda_time(lambda: F.scaled_dot_product_attention(
+            q32, k32r, v32r, is_causal=True), reps=3)
+    err_lib32, ok = compare_flash(lib32, plain)
+    require(ok, f"prefill_32k f32: SDPA and the plain version disagree "
+            f"({err_lib32}, tolerance 2e-5)")
+    bound32, bound32_by = h100.flash_bound_ms(w["b"], w["hq"], w["hkv"], s,
+                                              w["d"], "float32")
+    del q32, k32, v32, k32r, v32r, lib32, plain
     # kernels and plain version beside each other at S = 4096
     q, k, v = flash_inputs(gen, w["b"], w["hq"], w["hkv"], 4096, w["d"],
                            torch.bfloat16, dev)
@@ -884,6 +1013,13 @@ def phase_flash(dev, seed: int):
         "kernel_ms": ms, "cuda_core_kernel_ms": old_ms,
         "cuda_core_kernel_f32_ms": f32_ms, "plain_ms": plain_ms,
         "sdpa_ms": lib_ms, "bound_ms": bound, "bound_by": bound_by,
+        "f32": {"kernel_ms": f32_ms, "plain_ms": plain32_ms,
+                "sdpa_ms": lib32_ms, "bound_ms": bound32,
+                "bound_by": bound32_by,
+                "kernel_over_bound": f32_ms / bound32,
+                "kernel_over_sdpa": f32_ms / lib32_ms,
+                "kernel_vs_plain_err": err_f32,
+                "sdpa_vs_plain_err": err_lib32},
         "kernel_over_bound": ms / bound, "kernel_over_sdpa": ms / lib_ms,
         "p_terms": kernel.P_TERMS,
         "kernel_ms_by_p_terms": {1: terms_ms[1], 2: terms_ms[2],
@@ -896,18 +1032,22 @@ def phase_flash(dev, seed: int):
         "seconds": time.perf_counter() - t0,
     }
     log("flash metrics: " + json.dumps(metrics))
-    common = {"route": "cuda", "plain_ms": plain_ms, "bound_ms": bound,
-              "bound_by": bound_by, "library_ms": lib_ms}
     return [
-        {"name": kernel.FLASH_WGMMA, "source": FLASH_WGMMA_SOURCE,
+        {"name": kernel.FLASH_WGMMA, "route": "cuda",
+         "source": FLASH_WGMMA_SOURCE,
          "replaces": REPLACES[kernel.FLASH_WGMMA],
          "launches": launches[kernel.FLASH_WGMMA],
-         "max_abs_err": worst[kernel.FLASH_WGMMA], "ms": ms, **common},
-        # the f32 and D = 80 kernel; timed on the path's bf16 inputs
-        {"name": kernel.FLASH, "source": FLASH_SOURCE,
+         "max_abs_err": worst[kernel.FLASH_WGMMA], "ms": ms,
+         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+         "library_ms": lib_ms},
+        # the f32 and D = 80 kernel, on the path's f32 call (its bf16 time
+        # is cuda_core_kernel_ms in the metrics line)
+        {"name": kernel.FLASH, "route": "cuda", "source": FLASH_SOURCE,
          "replaces": REPLACES[kernel.FLASH],
          "launches": launches[kernel.FLASH],
-         "max_abs_err": worst[kernel.FLASH], "ms": old_ms, **common},
+         "max_abs_err": worst[kernel.FLASH], "ms": f32_ms,
+         "plain_ms": plain32_ms, "bound_ms": bound32,
+         "bound_by": bound32_by, "library_ms": lib32_ms},
     ]
 
 
@@ -1192,6 +1332,20 @@ def main() -> int:
         log(f"  {Path(source).name} PTX: {counts}")
         require(all(counts.values()), f"{Path(source).name}: PTX lacks one "
                 f"of {needed}")
+    # ... and, in each instance of the asynchronous window tier, its own
+    text = Path(str(ptx[str(kernel.SOURCE)]["path"])).read_text()
+    bodies = ptx_entries(text, WINDOW_ASYNC)
+    needed = ("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx",
+              "cp.async.bulk.global.shared::cta", "cp.async.ca.shared",
+              "cp.async.mbarrier.arrive", "mbarrier.try_wait.parity",
+              "fence.proxy.async", "bar.red.or")
+    for body in bodies:
+        counts = {w: body.count(w) for w in needed}
+        require(all(counts.values()), f"{WINDOW_ASYNC}: an instance's PTX "
+                f"lacks one of {needed}: {counts}")
+    log(f"  {WINDOW_ASYNC} PTX: {len(bodies)} instances, each with {needed}")
+    require(len(bodies) == 4, f"{WINDOW_ASYNC}: {len(bodies)} instances in "
+            "the PTX, not 4")
 
     worst = phase_small(dev)
     kernels = phase_full(dev, args.seed, args.scale, worst)

@@ -146,8 +146,8 @@ def window_tier(name: str, u_rows: torch.Tensor, v_rows: torch.Tensor,
                 state_in: torch.Tensor, *, tile_size: int,
                 vector_rounds: int = 1, fallback: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch a window-tier mutant as ``kernel.window_tier`` launches the
-    production kernel (default StateSpec)."""
+    """Launch a window-tier mutant as ``kernel.window_tier_sync`` launches
+    the production kernel it copies (default StateSpec)."""
     from repro_torch.kernels.skipper_match import kernel
 
     _check(name, "window", state_in, (u_rows, v_rows))

@@ -35,12 +35,20 @@ def block_smem(artifact, scale: int = 1) -> int:
     return artifact.facts.smem_static + artifact.target.dynamic_smem(scale)
 
 
-def largest_window(spec: StateSpec, tile: int, static: int) -> int:
+def largest_window(spec: StateSpec, tile: int, static: int,
+                   ring: bool = False) -> int:
     """The largest window whose window-tier block fits: the state row
-    (``window * vmem_bytes`` padded to 4) plus ``9 * tile``."""
+    (``window * vmem_bytes`` padded to 4) plus ``9 * tile``; with ``ring``
+    (the asynchronous window tier), the row padded to 16 plus one ring
+    stage."""
     from repro_torch.kernels._build import MAX_SMEM_BYTES
+    from repro_torch.kernels.skipper_match import kernel
 
-    room = (MAX_SMEM_BYTES - static - 9 * tile) // 4 * 4
+    if ring:
+        room = (MAX_SMEM_BYTES - static
+                - kernel.window_stage_bytes(tile)) // 16 * 16
+    else:
+        room = (MAX_SMEM_BYTES - static - 9 * tile) // 4 * 4
     return max(room, 0) // spec.vmem_bytes
 
 
@@ -73,15 +81,18 @@ class SmemBudget(KernelRule):
                 "limit": MAX_SMEM_BYTES}
         msg = f"{used} B a block ({t.smem_claim})"
         if t.role == "window":
+            ring = t.kernel == kernel.WINDOW_ASYNC
             data["largest_window"] = {}
             data["bytes_at_full_scale_window"] = {}
             for name in ("uint8", "int32"):
                 spec = StateSpec(vmem=name)
                 data["largest_window"][name] = largest_window(
-                    spec, t.threads, artifact.facts.smem_static)
+                    spec, t.threads, artifact.facts.smem_static, ring)
+                dynamic = (kernel.window_async_smem_bytes if ring else
+                           kernel.window_tier_smem_bytes)(
+                               FULL_SCALE_WINDOW, t.threads, spec)
                 data["bytes_at_full_scale_window"][name] = (
-                    artifact.facts.smem_static + kernel.window_tier_smem_bytes(
-                        FULL_SCALE_WINDOW, t.threads, spec))
+                    artifact.facts.smem_static + dynamic)
             msg += (f"; at tile {t.threads} the largest window is "
                     f"{data['largest_window']['uint8']} (uint8 state), "
                     f"{data['largest_window']['int32']} (int32); window "
@@ -89,6 +100,14 @@ class SmemBudget(KernelRule):
                     f"{data['bytes_at_full_scale_window']['uint8']} B "
                     f"(uint8), {data['bytes_at_full_scale_window']['int32']}"
                     f" B (int32)")
+            if ring:
+                data["ring_stages_at_full_scale_window"] = {
+                    name: kernel.window_ring_stages(
+                        FULL_SCALE_WINDOW, t.threads, StateSpec(vmem=name))
+                    for name in ("uint8", "int32")}
+                msg += (f"; its ring takes "
+                        f"{data['ring_stages_at_full_scale_window']} stages "
+                        "there (0: the first window tier runs instead)")
         out.append(self.finding(Severity.INFO, t.name, msg, data=data))
         return out
 

@@ -4,9 +4,11 @@ reference's canonical geometry (``targets.py:27-31``: tile 256, window
 256, 4 windows, 2 tiles a window, seed 0).
 
 * Kernel targets (:class:`KernelTarget`) name one template instance of a
-  ``__global__`` function: the window tier, the first global tier and the
-  asynchronous global tier (its staged and its device-memory instance)
-  under each (state width, counter width) pair, the CUDA-core flash
+  ``__global__`` function: the asynchronous window tier, the first window
+  tier, the first global tier and the asynchronous global tier (its staged
+  and its device-memory instance) under each (state width, counter width)
+  pair (the window tier's ring depth is a launch argument, so the shape
+  rule adds no instance), the CUDA-core flash
   attention under each (dtype, head dim) the source builds, and the
   tensor-core flash attention under each head dim. Each carries the dynamic shared
   memory its launch wrapper requests at ``scale`` times the canonical
@@ -110,6 +112,11 @@ def _matcher_targets() -> List[KernelTarget]:
                 return kernel.window_tier_smem_bytes(s.window, s.tile_size,
                                                      spec)
 
+            def window_async_smem(scale, spec=spec):
+                s = canonical_schedule(scale)
+                return kernel.window_async_smem_bytes(s.window, s.tile_size,
+                                                      spec)
+
             def boundary_smem(scale):
                 return kernel.boundary_smem_bytes(
                     canonical_schedule(scale).tile_size)
@@ -120,6 +127,16 @@ def _matcher_targets() -> List[KernelTarget]:
                     s.window, s.tile_size, spec, staged)
 
             out.append(KernelTarget(
+                name=f"window_async[{vmem},{counter}]",
+                source=kernel.SOURCE, kernel=kernel.WINDOW_ASYNC,
+                template=tmpl, role="window", threads=TILE,
+                dynamic_smem=window_async_smem,
+                smem_claim="O(window * sizeof(S) + stages * 8 * "
+                           "stage_tiles * tile), independent of V: one "
+                           "row's state and the ring of ids",
+                spec=spec,
+                launch=functools.partial(kernel.window_tier, spec=spec)))
+            out.append(KernelTarget(
                 name=f"window_tier[{vmem},{counter}]",
                 source=kernel.SOURCE, kernel=kernel.WINDOW_TIER,
                 template=tmpl, role="window", threads=TILE,
@@ -127,7 +144,8 @@ def _matcher_targets() -> List[KernelTarget]:
                 smem_claim="O(window * sizeof(S) + 9 * tile), independent "
                            "of V: one row's state and one tile's ids",
                 spec=spec,
-                launch=functools.partial(kernel.window_tier, spec=spec)))
+                launch=functools.partial(kernel.window_tier_sync,
+                                         spec=spec)))
             out.append(KernelTarget(
                 name=f"boundary[{vmem},{counter}]",
                 source=kernel.SOURCE, kernel=kernel.BOUNDARY,
@@ -253,13 +271,13 @@ def _entry_targets() -> List[EntryTarget]:
 
     return [
         EntryTarget("skipper_match", _run_skipper_match,
-                    {kernel.WINDOW_TIER: 1, kernel.BOUNDARY_ASYNC: 1,
-                     kernel.BOUNDARY: 0, flash.FLASH: 0,
-                     flash.FLASH_WGMMA: 0}),
+                    {kernel.WINDOW_ASYNC: 1, kernel.WINDOW_TIER: 0,
+                     kernel.BOUNDARY_ASYNC: 1, kernel.BOUNDARY: 0,
+                     flash.FLASH: 0, flash.FLASH_WGMMA: 0}),
         EntryTarget("flash_attention", _run_flash_attention,
                     {flash.FLASH_WGMMA: 1, flash.FLASH: 0,
-                     kernel.WINDOW_TIER: 0, kernel.BOUNDARY: 0,
-                     kernel.BOUNDARY_ASYNC: 0}),
+                     kernel.WINDOW_ASYNC: 0, kernel.WINDOW_TIER: 0,
+                     kernel.BOUNDARY: 0, kernel.BOUNDARY_ASYNC: 0}),
         EntryTarget("serve_decode_step", _run_serve_decode_step,
                     {flash.FLASH: 0, flash.FLASH_WGMMA: 0}),
     ]

@@ -1,7 +1,7 @@
 // Hand-written Hopper (sm_90a) kernels for the single-pass matcher's two
 // tiers, with a plain C interface loaded by kernel.py through ctypes.
 //
-// Both kernels run one tile body, match_tile(): the first-claim rounds and
+// All kernels run one tile body, match_tile(): the first-claim rounds and
 // the exact fallback of src/repro/core/engine.py (run_first_claim_rounds,
 // :482; greedy_fallback_rounds, :564) on T edges, one thread per lane:
 //
@@ -158,7 +158,10 @@ __device__ int match_tile(int uu, int vv, const int* tu, const int* tv,
 // Bound on this card: bytes are ~10 per slot (ids in, counters out), but
 // what limits it today is the serial chain of tiles inside one block and
 // the O(T) blocked scan per round; with one row (the full-scale schedule)
-// one SM does the whole tier. This is the simple first design.
+// one SM does the whole tier. This is the simple first design, superseded
+// on the main path by skipper_window_async_kernel below; it stays as that
+// kernel's yardstick, for shapes whose ring does not fit, and as the body
+// the dropped_dma_wait canary copies.
 template <typename S, typename C>
 __global__ void skipper_window_tier_kernel(
     const int* __restrict__ u, const int* __restrict__ v,
@@ -549,6 +552,293 @@ __global__ void skipper_boundary_async_kernel(
   }
 }
 
+// ---- the window tier fed ahead of use ---------------------------------------
+
+// a window-tier ring stage holds kWinGroup consecutive tiles of a row; the
+// ring has at most kWinMaxStages stages (kernel.py picks the depth)
+constexpr int kWinGroup = 16;
+constexpr int kWinMaxStages = 8;
+
+__host__ __device__ inline size_t align16(size_t n) {
+  return (n + 15) & ~size_t(15);
+}
+
+// One stage: [u: kWinGroup * T ints][v: the same].
+__host__ __device__ inline size_t win_stage_bytes(int tile) {
+  return 8 * size_t(kWinGroup) * tile;
+}
+
+// Dynamic shared memory of the asynchronous window tier:
+// [state row: window * sizeof(S), padded to 16][ring: stages stages]. The
+// free flags, the free list, the warp counts and the stage's tile bits are
+// static arrays of the kernel, sized for kMaxTile.
+template <typename S>
+__host__ __device__ inline size_t window_async_smem(int window, int tile,
+                                                    int stages) {
+  return align16(size_t(window) * sizeof(S)) +
+         size_t(stages) * win_stage_bytes(tile);
+}
+
+// Lane 0 fills a stage with the n tiles that start at slot k0 of the row's
+// ids (consecutive tiles of a row are contiguous); the stage's "full"
+// barrier expects one arrival. A whole stage whose ids start on a 16-byte
+// boundary comes by two bulk copies, completing with their bytes on the
+// barrier after its one arrival (expect_tx); the row's last, partial stage,
+// or a row whose slots start off a 16-byte boundary, by 4-byte cp.async:
+// their arrive (without .noinc: it adds one to the pending count, so the
+// phase waits for them) and then the one arrival.
+__device__ __forceinline__ void fill_window_stage(unsigned char* stage,
+                                                  uint32_t bar, const int* u,
+                                                  const int* v, size_t k0,
+                                                  int n, int T) {
+  const uint32_t du = smem_addr(stage), dv = du + 4 * kWinGroup * T;
+  const uint32_t bytes = 4u * uint32_t(n) * uint32_t(T);
+  const uintptr_t a = reinterpret_cast<uintptr_t>(u + k0) |
+                      reinterpret_cast<uintptr_t>(v + k0);
+  if (n == kWinGroup && (a & 15) == 0) {
+    mbar_expect_tx(bar, 2 * bytes);
+    bulk_load(du, u + k0, bytes, bar);
+    bulk_load(dv, v + k0, bytes, bar);
+  } else {
+    for (int i = 0; i < n * T; ++i) {
+      cp_async4(du + 4 * i, u + k0 + i);
+      cp_async4(dv + 4 * i, v + k0 + i);
+    }
+    asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];" ::"r"(bar)
+                 : "memory");
+    mbar_arrive(bar);
+  }
+}
+
+// Zeros of a dead stage's counters: its n * T slots from slot k0 of the
+// row are contiguous, so the block clears them by 16-byte stores, the lanes
+// on consecutive units; a stage that does not start and end on a 16-byte
+// boundary is cleared slot by slot.
+template <typename C>
+__device__ __forceinline__ void zero_stage(C* mr, C* cr, size_t k0, int n,
+                                           int T, int l) {
+  const size_t bytes = size_t(n) * T * sizeof(C);
+  const uintptr_t a = reinterpret_cast<uintptr_t>(mr + k0) |
+                      reinterpret_cast<uintptr_t>(cr + k0) | bytes;
+  if ((a & 15) == 0) {
+    uint4* const pm = reinterpret_cast<uint4*>(mr + k0);
+    uint4* const pc = reinterpret_cast<uint4*>(cr + k0);
+    const uint4 zero = make_uint4(0, 0, 0, 0);
+    for (int i = l; i < int(bytes / 16); i += T) {
+      pm[i] = zero;
+      pc[i] = zero;
+    }
+  } else {
+    for (int j = 0; j < n; ++j) {
+      mr[k0 + size_t(j) * T + l] = C(0);
+      cr[k0 + size_t(j) * T + l] = C(0);
+    }
+  }
+}
+
+// thread 0's cycle profile: a reduction into device memory (no register
+// array stays live across the tiles, and rows add up)
+__device__ __forceinline__ void profile_add(unsigned long long* profile,
+                                            int field, long long cycles) {
+  atomicAdd(profile + field, static_cast<unsigned long long>(cycles));
+}
+
+// Replaces src/repro/kernels/skipper_match/kernel.py::skipper_pipeline_kernel
+// (:158) and, launched with one row, skipper_window_kernel (:121), as
+// skipper_window_tier_kernel did, with the same tile arithmetic and the same
+// result bit for bit: one block per schedule row, T threads, the row's state
+// in dynamic shared memory, the row's tiles walked in order.
+// Bound on this card: ~10 bytes a slot, but the limit is the chain of tiles
+// inside one block (at full scale one row: one SM walks the whole tier), and
+// in the first kernel every tile paid on that chain a device-memory load of
+// its ids, two CTA barriers and, with a free lane, the lane-by-lane blocked
+// scan. Here:
+//   * the ids come ahead of use: lane 0 fills a ring of `stages` stages of
+//     kWinGroup tiles (fill_window_stage) with bulk copies completing on
+//     each stage's "full" mbarrier, and refills a stage with the group
+//     `stages` ahead once every lane is done with it: in a dead stage right
+//     after the stage's one barrier (every lane's reads of the stage
+//     precede it), in a live one after the walk and one more barrier. The
+//     CTA barriers are the stages' release, so no "empty" mbarriers;
+//   * dead stages pass with one barrier: before it walks a stage, every
+//     lane tests its slots against the state as it is now, and one
+//     __syncthreads_or says whether any slot of the stage is free. This is
+//     exact. State is monotone (a commit turns ACC into MCHD; nothing turns
+//     MCHD back), so a slot that is not free now is not free at its own
+//     tile, and a tile with no free lane stops in match_tile's round 0 with
+//     matched = 0, conflicts = 0 and no state write, for every
+//     vector_rounds and with fallback on or off. A dead stage only writes
+//     its counters' zeros, by 16-byte stores (zero_stage): every counter is
+//     then written once, by the kernel (the wrapper allocates with
+//     torch.empty as the other wrappers do), and no store is on a
+//     dependence chain. In a live stage warp reductions of the lanes' tile
+//     bits, through shared memory and one more barrier, say which tiles
+//     hold a free slot; the others get zeros slot by slot, and the rest
+//     are walked one by one through match_tile, exactly as before;
+//   * the blocked test scans only the free lanes before a lane
+//     (blocked_by_free_list), as the asynchronous global tier does;
+//   * the state row comes in by a bulk copy completing on an mbarrier and
+//     leaves by a bulk store (after fence.proxy.async: its cells were last
+//     written by generic stores), so a row is a whole number of 16-byte
+//     units at 16-byte aligned addresses (kernel.py's window_instance).
+// It takes up to kMaxTile threads, so at most 64 registers a thread.
+// profile (null unless asked for): thread 0's clock64 cycles over the stage
+// loop, added into device memory over the stages and the rows, in the
+// order of kernel.py's WINDOW_PROFILE_FIELDS (the wrapper fills
+// counters_release_refill, the rest of the loop, from the total).
+template <typename S, typename C>
+__global__ void __launch_bounds__(kMaxTile)
+    skipper_window_async_kernel(
+        const int* __restrict__ u, const int* __restrict__ v,
+        const S* __restrict__ state_in, S* __restrict__ state_out,
+        C* __restrict__ matched, C* __restrict__ conflicts, int window,
+        int tiles_per_row, int vector_rounds, int fallback, int stages,
+        unsigned long long* __restrict__ profile) {
+  __shared__ __align__(8) uint64_t full_bar[kWinMaxStages];
+  __shared__ __align__(8) uint64_t row_bar;
+  __shared__ unsigned char frs[kMaxTile];
+  __shared__ int warp_counts[32];
+  __shared__ int free_u[kMaxTile];
+  __shared__ int free_v[kMaxTile];
+  __shared__ unsigned tile_bits[32];
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int T = blockDim.x, l = threadIdx.x;
+  const size_t row = blockIdx.x;
+  const size_t row_bytes = size_t(window) * sizeof(S);
+  S* const st = reinterpret_cast<S*>(smem);
+  unsigned char* const ring = smem + align16(row_bytes);
+  const size_t stage_bytes = win_stage_bytes(T);
+  const uint32_t bar0 = smem_addr(full_bar), rbar = smem_addr(&row_bar);
+  const int warps = (T + 31) / 32;
+  // this lane's warp (the last one may be partial), for the warp reduction
+  const int in_warp = min(T - (l & ~31), 32);
+  const unsigned warp_mask =
+      in_warp == 32 ? 0xffffffffu : (1u << in_warp) - 1u;
+  const size_t slots = size_t(tiles_per_row) * T;
+  const int* const ur = u + row * slots;
+  const int* const vr = v + row * slots;
+  C* const mr = matched + row * slots;
+  C* const cr = conflicts + row * slots;
+  const int num_groups = (tiles_per_row + kWinGroup - 1) / kWinGroup;
+  if (l == 0) {
+    for (int i = 0; i < stages; ++i) mbar_init(bar0 + 8 * i, 1);
+    mbar_init(rbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (l == 0) {
+    mbar_expect_tx(rbar, uint32_t(row_bytes));
+    bulk_load(smem_addr(st), state_in + row * window, uint32_t(row_bytes),
+              rbar);
+    for (int g = 0; g < stages && g < num_groups; ++g)
+      fill_window_stage(ring + g * stage_bytes, bar0 + 8 * g, ur, vr,
+                        size_t(g) * kWinGroup * T,
+                        min(kWinGroup, tiles_per_row - g * kWinGroup), T);
+  }
+  mbar_wait(rbar, 0);  // the state row has arrived
+  const RowCell<S> cell{st};
+  const FreeList free_list{warp_counts, free_u, free_v};
+  const bool timed = profile != nullptr && l == 0;
+  int si = 0;             // the group's ring stage: g % stages
+  uint32_t phase = 0;     // and its use's parity: (g / stages) & 1
+  for (int g = 0; g < num_groups; ++g) {
+    const long long c0 = timed ? clock64() : 0;
+    const int n = min(kWinGroup, tiles_per_row - g * kWinGroup);
+    const size_t k0 = size_t(g) * kWinGroup * T;
+    // a completed phase: the stage's ids arrived long before, as a rule
+    mbar_wait(bar0 + 8 * si, phase);
+    const long long c1 = timed ? clock64() : 0;
+    const int* const su = reinterpret_cast<const int*>(ring + si * stage_bytes);
+    const int* const sv = su + kWinGroup * T;
+    // the dead test: this lane's slots against the state as it is now, all
+    // loads issued before any is used
+    int a[kWinGroup], b[kWinGroup];
+#pragma unroll
+    for (int j = 0; j < kWinGroup; ++j) {
+      a[j] = j < n ? su[j * T + l] : -1;
+      b[j] = j < n ? sv[j * T + l] : -1;
+    }
+    unsigned bits = 0;
+#pragma unroll
+    for (int j = 0; j < kWinGroup; ++j) {
+      const bool ok = (a[j] >= 0) & (a[j] != b[j]);
+      const bool acc = (st[ok ? a[j] : 0] == 0) & (st[ok ? b[j] : 0] == 0);
+      bits |= unsigned(ok & acc) << j;
+    }
+    // barrier: every lane's reads of the stage precede the refill, and
+    // every lane's state reads precede any commit of this stage's tiles
+    const bool live = __syncthreads_or(bits != 0);
+    const long long c2 = timed ? clock64() : 0;
+    const int next = g + stages;  // the group that refills this stage
+    if (!live) {
+      if (l == 0 && next < num_groups) {
+        fill_window_stage(ring + si * stage_bytes, bar0 + 8 * si, ur, vr,
+                          size_t(next) * kWinGroup * T,
+                          min(kWinGroup, tiles_per_row - next * kWinGroup), T);
+        if (timed) profile_add(profile, 5, clock64() - c2);
+      }
+      zero_stage(mr, cr, k0, n, T, l);
+      if (timed) profile_add(profile, 6, 1);
+    } else {
+      const unsigned wbits = __reduce_or_sync(warp_mask, bits);
+      if ((l & 31) == 0) tile_bits[l >> 5] = wbits;
+      __syncthreads();  // every warp's bits are visible
+      unsigned tiles = 0;  // the stage's tiles that hold a free slot
+      for (int w = 0; w < warps; ++w) tiles |= tile_bits[w];
+      if (timed) profile_add(profile, 2, clock64() - c2);
+#pragma unroll 1
+      for (int j = 0; j < n; ++j) {
+        const size_t k = k0 + size_t(j) * T + l;
+        if (!((tiles >> j) & 1u)) {  // a dead tile
+          mr[k] = C(0);
+          cr[k] = C(0);
+          continue;
+        }
+        bool m;
+        int c;
+        const long long b0 = timed ? clock64() : 0;
+        const int rounds = match_tile<S, RowCell<S>, true>(
+            su[j * T + l], sv[j * T + l], nullptr, nullptr, frs, cell,
+            vector_rounds, fallback != 0, m, c, free_list);
+        if (timed) {
+          const long long body = clock64() - b0;
+          profile_add(profile, 3, body);
+          profile_add(profile, 7, 1);
+          if (rounds > 0) {  // tiles in which some lane was free
+            profile_add(profile, 8, 1);
+            profile_add(profile, 9, body);
+          }
+        }
+        mr[k] = C(m);
+        cr[k] = C(c);
+      }
+      __syncthreads();  // every lane's reads of the stage precede the refill
+      if (l == 0 && next < num_groups) {
+        const long long r0 = timed ? clock64() : 0;
+        fill_window_stage(ring + si * stage_bytes, bar0 + 8 * si, ur, vr,
+                          size_t(next) * kWinGroup * T,
+                          min(kWinGroup, tiles_per_row - next * kWinGroup), T);
+        if (timed) profile_add(profile, 5, clock64() - r0);
+      }
+    }
+    if (++si == stages) {
+      si = 0;
+      phase ^= 1;
+    }
+    if (timed) {
+      profile_add(profile, 0, c1 - c0);
+      profile_add(profile, 1, c2 - c1);
+      profile_add(profile, 10, clock64() - c0);
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();  // every lane's state writes precede the store
+  if (l == 0) {
+    bulk_store(state_out + row * window, smem_addr(st), uint32_t(row_bytes));
+    bulk_wait_all();
+  }
+}
+
 template <typename S, typename C>
 int launch_window_tier(const int* u, const int* v, const void* state_in,
                        void* state_out, void* matched, void* conflicts,
@@ -565,6 +855,33 @@ int launch_window_tier(const int* u, const int* v, const void* state_in,
       u, v, static_cast<const S*>(state_in), static_cast<S*>(state_out),
       static_cast<C*>(matched), static_cast<C*>(conflicts), window,
       tiles_per_row, vector_rounds, fallback);
+  return int(cudaGetLastError());
+}
+
+template <typename S, typename C>
+int launch_window_async(const int* u, const int* v, const void* state_in,
+                        void* state_out, void* matched, void* conflicts,
+                        int num_rows, int tiles_per_row, int tile_size,
+                        int window, int vector_rounds, int fallback,
+                        int stages, int smem_bytes, void* profile,
+                        void* stream) {
+  if (stages < 1 || stages > kWinMaxStages ||
+      size_t(smem_bytes) < window_async_smem<S>(window, tile_size, stages))
+    return int(cudaErrorInvalidValue);
+  // bulk copies move whole 16-byte units between 16-byte aligned addresses
+  if (((size_t(window) * sizeof(S)) |
+       reinterpret_cast<uintptr_t>(state_in) |
+       reinterpret_cast<uintptr_t>(state_out)) % 16 != 0)
+    return int(cudaErrorInvalidValue);
+  auto kernel = skipper_window_async_kernel<S, C>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return int(err);
+  kernel<<<num_rows, tile_size, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      u, v, static_cast<const S*>(state_in), static_cast<S*>(state_out),
+      static_cast<C*>(matched), static_cast<C*>(conflicts), window,
+      tiles_per_row, vector_rounds, fallback, stages,
+      static_cast<unsigned long long*>(profile));
   return int(cudaGetLastError());
 }
 
@@ -618,6 +935,17 @@ int launch_boundary_async(const int* blk_u, const int* blk_v, const int* u,
                                     conflicts, num_rows, tiles_per_row,        \
                                     tile_size, window, vector_rounds,          \
                                     fallback, smem_bytes, stream);             \
+  }                                                                            \
+  extern "C" int skipper_window_async_##SN##_##CN(                             \
+      const int* u, const int* v, const void* state_in, void* state_out,       \
+      void* matched, void* conflicts, int num_rows, int tiles_per_row,         \
+      int tile_size, int window, int vector_rounds, int fallback, int stages,  \
+      int smem_bytes, void* profile, void* stream) {                           \
+    return launch_window_async<S, C>(u, v, state_in, state_out, matched,       \
+                                     conflicts, num_rows, tiles_per_row,       \
+                                     tile_size, window, vector_rounds,         \
+                                     fallback, stages, smem_bytes, profile,    \
+                                     stream);                                  \
   }                                                                            \
   extern "C" int skipper_boundary_##SN##_##CN(                                 \
       const int* blk_u, const int* blk_v, const int* u, const int* v,          \

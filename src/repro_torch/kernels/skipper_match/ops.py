@@ -61,14 +61,18 @@ def skipper_match_window(
     fallback: bool = True,
     backend: Optional[str] = None,
     spec: Optional[StateSpec] = None,
+    device=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Match a window-local edge stream on the tensors' device.
+    """Match a window-local edge stream on ``device`` (``None``: the card;
+    the tensors are moved there).
 
     u, v: int32[M] window-local ids, -1 padding; state0: [W] (coerced to
     ``spec.vmem``). Returns ``(state, matched, conflicts)`` in spec.vmem /
-    spec.counter widths, matched/conflicts of length M."""
+    spec.counter widths, matched/conflicts of length M, on ``device``."""
+    dev = resolve_device(device, "cuda", "skipper_match_window")
+    backend = resolve_backend(backend, dev)
     spec = resolve_spec(spec)
-    backend = resolve_backend(backend, u.device)
+    u, v, state0 = (t.to(dev) for t in (u, v, state0))
     m = u.shape[0]
     pad = (-m) % tile_size
     if pad:

@@ -15,6 +15,12 @@ from typing import Dict, Tuple
 HBM_BYTES_PER_S = 3.35e12
 #: dense bf16 tensor-core rate, FLOP/s
 BF16_FLOPS_PER_S = 989e12
+#: float32 rate of the CUDA cores (outside the tensor cores), FLOP/s: the
+#: "FP32 67 teraFLOPS" of NVIDIA's H100 SXM data sheet
+F32_FLOPS_PER_S = 67e12
+#: the peak rate and the element size of each attention dtype
+FLASH_RATES = {"bfloat16": (BF16_FLOPS_PER_S, 2),
+               "float32": (F32_FLOPS_PER_S, 4)}
 #: 32-bit registers of one SM, and the allocation unit of a warp's
 #: registers
 REGISTERS_PER_SM = 65_536
@@ -51,13 +57,15 @@ def boundary_bytes(s, spec) -> int:
             + 2 * spec.counter_bytes * slots)
 
 
-def flash_bound_ms(b, hq, hkv, s, d, itemsize) -> Tuple[float, str]:
+def flash_bound_ms(b, hq, hkv, s, d, dtype: str) -> Tuple[float, str]:
     """The larger of the causal flops (2*B*Hq*S^2*D: both products over half
-    the square) at the bf16 tensor-core rate and the bytes of q, k, v and o
-    at the memory rate."""
+    the square) at ``dtype``'s peak rate (``"bfloat16"``: the tensor cores;
+    ``"float32"``: the CUDA cores) and the bytes of q, k, v and o at the
+    memory rate."""
+    rate, itemsize = FLASH_RATES[dtype]
     flops = 2 * b * hq * s * s * d
     nbytes = itemsize * (2 * b * hq * s * d + 2 * b * hkv * s * d)
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / rate * 1e3
     t_bytes = bytes_ms(nbytes)
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 

@@ -557,14 +557,59 @@ def test_shared_memory_limits_per_state_width():
     assert kernel.boundary_smem_bytes(256) == 2304
 
 
+def test_async_window_tier_shared_memory_limits():
+    """With one ring stage of 16 tiles beside the row (padded to 16) the
+    asynchronous window tier's largest window at tile 256 and no static
+    memory: 199,680 u8 cells, 49,920 int32."""
+    assert largest_window(StateSpec.u8(), 256, 0, ring=True) == 199_680
+    assert largest_window(StateSpec.legacy_i32(), 256, 0,
+                          ring=True) == 49_920
+    assert kernel.window_async_smem_bytes(
+        199_680, 256, StateSpec.u8(), 1) == _build.MAX_SMEM_BYTES
+
+
+def test_targets_name_every_async_window_instance():
+    """Every (state, counter) instance of ``skipper_window_async_kernel``
+    is a kernel target launched through ``kernel.window_tier`` (the ring
+    depth is a launch argument, so the shape rule adds no instance); the
+    first window tier's targets launch ``window_tier_sync``; and
+    ``skipper_match``'s census expects the new kernel once and the first
+    one never."""
+    from repro_torch.analysis import targets
+
+    widths = [(s, c) for s in ("uint8", "int32") for c in ("uint8", "int32")]
+    by_name = {t.name: t for t in targets.get_targets()}
+    for s, c in widths:
+        t = by_name[f"window_async[{s},{c}]"]
+        assert t.kernel == kernel.WINDOW_ASYNC == "skipper_window_async_kernel"
+        assert t.template == (targets.CPP_TYPES[s], targets.CPP_TYPES[c])
+        assert t.role == "window" and t.launch.func is kernel.window_tier
+        assert t.dynamic_smem(1) == t.dynamic_smem(2) == (
+            kernel.window_async_smem_bytes(targets.WINDOW, targets.TILE,
+                                           t.spec))
+        first = by_name[f"window_tier[{s},{c}]"]
+        assert first.kernel == kernel.WINDOW_TIER
+        assert first.launch.func is kernel.window_tier_sync
+    assert sum(getattr(t, "kernel", None) == kernel.WINDOW_ASYNC
+               for t in by_name.values()) == 4
+    assert len(by_name) == 31
+    census = by_name["skipper_match"].expect
+    assert census[kernel.WINDOW_ASYNC] == 1
+    assert census[kernel.WINDOW_TIER] == 0
+    assert by_name["flash_attention"].expect[kernel.WINDOW_ASYNC] == 0
+
+
 def test_roofline_models():
     occ = h100.occupancy(registers=27, threads=256, smem_bytes=2560)
     assert occ["blocks_per_sm"] == 8 and occ["occupancy"] == 1.0
     occ = h100.occupancy(registers=127, threads=512, smem_bytes=201_216)
     assert occ["blocks_per_sm"] == 1 and occ["occupancy"] == 0.25
-    ms, by = h100.flash_bound_ms(1, 24, 8, 32768, 64, 2)
+    ms, by = h100.flash_bound_ms(1, 24, 8, 32768, 64, "bfloat16")
     assert by == "operations"
     assert ms == pytest.approx(2 * 24 * 32768**2 * 64 / 989e12 * 1e3)
+    ms, by = h100.flash_bound_ms(1, 24, 8, 32768, 64, "float32")
+    assert by == "operations"
+    assert ms == pytest.approx(2 * 24 * 32768**2 * 64 / 67e12 * 1e3)
     s = types.SimpleNamespace(u_tiles=np.zeros((2, 512)), num_rows=2,
                               window=256, num_boundary_padded=1024,
                               num_windows=4, num_boundary_tiles=4)

@@ -45,7 +45,8 @@ def test_skipper_match_kernels_equal_plain(cuda_device, spec, vector_rounds):
               with_conflicts=True, device=cuda_device)
     kernel.reset_launch_counts()
     rk, ck = skipper_match(g, backend="cuda", verify=True, **kw)
-    assert kernel.launch_counts() == {kernel.WINDOW_TIER: 1,
+    assert kernel.launch_counts() == {kernel.WINDOW_ASYNC: 1,
+                                      kernel.WINDOW_TIER: 0,
                                       kernel.BOUNDARY_ASYNC: 1,
                                       kernel.BOUNDARY: 0}
     rp, cp = skipper_match(g, backend="torch", **kw)
@@ -87,7 +88,7 @@ def test_match_window_kernel_equal_plain(cuda_device):
                            .astype(np.uint8))
     got = skipper_match_window(u.cuda(), v.cuda(), st0.cuda(), 128,
                                backend="cuda")
-    want = skipper_match_window(u, v, st0, 128)
+    want = skipper_match_window(u, v, st0, 128, device="cpu")
     _same(*((a.cpu(), b) for a, b in zip(got, want)))
     # a whole stream in one window from all-ACC is the sequential greedy
     lo, hi = torch.minimum(u, v), torch.maximum(u, v)
@@ -115,6 +116,185 @@ def test_kernels_reject_out_of_range_ids(cuda_device):
     st0 = torch.zeros((1, 32), dtype=torch.uint8, device=cuda_device)
     with pytest.raises(ValueError, match="out of range"):
         kernel.window_tier(u, u + 1, st0, tile_size=64)
+
+
+# ----------------------------------------------- the asynchronous window tier --
+#: (state, counter) widths of the kernels' four instances
+WIDTHS = [(s, c) for s in ("uint8", "int32") for c in ("uint8", "int32")]
+WINDOW = 256
+
+
+def _window_case(case, tile, seed):
+    """Numpy-seeded window-tier inputs ``(u, v, state)`` of one case, at
+    window 256 (every row a whole number of 16-byte units), with G tiles a
+    ring stage:
+
+    * ``rows``: three rows of 2G + 5 tiles (two whole stages and a partial
+      one), a quarter padding, self-loops, a caller state with MCHD cells;
+    * ``short_row``: one row of 5 tiles, fewer than a stage and than the
+      ring's stages;
+    * ``dead_row``: two rows of G + 1 tiles against a state all MCHD;
+    * ``star``: every slot on vertex 0, two rows of G + 4 tiles;
+    * ``late_free``: one row of 2G tiles (two whole stages) whose slots are
+      all dead but the last lane of tile G - 1 and of tile 2G - 1, the last
+      tiles of the two stages.
+    """
+    g = kernel.WINDOW_STAGE_TILES
+    rng = np.random.default_rng(seed)
+    rows, tiles = {"rows": (3, 2 * g + 5), "short_row": (1, 5),
+                   "dead_row": (2, g + 1), "star": (2, g + 4),
+                   "late_free": (1, 2 * g)}[case]
+    shape = (rows, tiles * tile)
+    u = rng.integers(0, WINDOW, shape)
+    v = rng.integers(0, WINDOW, shape)
+    state = np.where(rng.random((rows, WINDOW)) < 0.1, 2, 0)
+    if case == "rows":
+        v = np.where(rng.random(shape) < 0.05, u, v)
+        pad = rng.random(shape) < 0.25
+        u, v = np.where(pad, -1, u), np.where(pad, -1, v)
+    elif case == "dead_row":
+        state[:] = 2
+    elif case == "star":
+        u[:] = 0
+        state[:] = 0
+    elif case == "late_free":
+        state[:] = 2
+        state[:, 1:5] = 0
+        u, v = u % (WINDOW - 5) + 5, v % (WINDOW - 5) + 5
+        u[0, g * tile - 1], v[0, g * tile - 1] = 1, 2
+        u[0, 2 * g * tile - 1], v[0, 2 * g * tile - 1] = 3, 4
+    return u.astype(np.int32), v.astype(np.int32), state
+
+
+def _run_window_tiers(case, tile, widths, vector_rounds, fallback, device):
+    sp = StateSpec(vmem=widths[0], wire=widths[0], counter=widths[1])
+    u, v, state = (torch.from_numpy(a).to(device) for a in
+                   _window_case(case, tile, tile + len(case)))
+    st0 = state.to(sp.vmem_dtype)
+    kw = dict(tile_size=tile, vector_rounds=vector_rounds, fallback=fallback,
+              spec=sp)
+    assert kernel.window_instance(WINDOW, tile, sp) == "async"
+    kernel.reset_launch_counts()
+    got = kernel.window_tier(u, v, st0, **kw)
+    first = kernel.window_tier_sync(u, v, st0, **kw)
+    want = ref.ref_window_tier(u, v, st0, **kw)
+    torch.cuda.synchronize()
+    _same(*zip(got, want), *zip(first, want))
+    assert kernel.launch_counts()[kernel.WINDOW_ASYNC] == 1
+    assert kernel.launch_counts()[kernel.WINDOW_TIER] == 1
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", WIDTHS)
+@pytest.mark.parametrize("tile", [33, 64, 256, 1024])
+@pytest.mark.parametrize("case", ["rows", "short_row", "dead_row", "star",
+                                  "late_free"])
+def test_async_window_tier_equals_plain_and_first_kernel(
+        cuda_device, widths, tile, case):
+    """skipper_window_async_kernel bit for bit against ref_window_tier and
+    skipper_window_tier_kernel: states, matched and conflicts, in each of
+    the four (state, counter) widths. Tile 33 puts every row but the first
+    off a 16-byte boundary (its ids come by cp.async); at tile 1024 the
+    kernel runs 1,024 threads, the most it takes."""
+    want = _run_window_tiers(case, tile, widths, 1, True, cuda_device)
+    if case == "late_free":   # the skip kept both lone free slots
+        g = kernel.WINDOW_STAGE_TILES
+        assert int(want[1][0, g * tile - 1]) == 1
+        assert int(want[1][0, 2 * g * tile - 1]) == 1
+        assert int(want[1].to(torch.int64).sum()) == 2
+    if case == "dead_row":
+        assert int(want[1].to(torch.int64).sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", [WIDTHS[0], WIDTHS[3]])
+@pytest.mark.parametrize("rounds", [(2, True), (1, False), (2, False)])
+@pytest.mark.parametrize("case", ["rows", "star", "late_free"])
+def test_async_window_tier_rounds_and_fallback(cuda_device, widths, rounds,
+                                               case):
+    """The same with two vector rounds and with the fallback off."""
+    _run_window_tiers(case, 64, widths, *rounds, cuda_device)
+
+
+@pytest.mark.cuda
+def test_window_tier_profile_leaves_the_result(cuda_device):
+    """The optional cycle profile fills its counters (stages timed, dead
+    stages, walked and free tiles counted, added over the rows) and changes
+    no output."""
+    sp = StateSpec.u8()
+    u, v, state = (torch.from_numpy(a).to(cuda_device)
+                   for a in _window_case("rows", 64, 1))
+    st0 = state.to(torch.uint8)
+    prof = torch.full((len(kernel.WINDOW_PROFILE_FIELDS),), 7,
+                      dtype=torch.int64, device=cuda_device)
+    got = kernel.window_tier(u, v, st0, tile_size=64, spec=sp, profile=prof)
+    want = kernel.window_tier(u, v, st0, tile_size=64, spec=sp)
+    torch.cuda.synchronize()
+    _same(*zip(got, want))
+    cyc = dict(zip(kernel.WINDOW_PROFILE_FIELDS, prof.tolist()))
+    assert cyc["total"] > 0 and cyc["stage_wait"] > 0
+    assert 0 < cyc["free_tiles"] <= cyc["walked_tiles"] <= u.numel() // 64
+    assert cyc["refill"] <= cyc["counters_release_refill"]
+    assert cyc["tile_body"] >= cyc["tile_body_in_free_tiles"] > 0
+    assert cyc["total"] == sum(cyc[f] for f in (
+        "stage_wait", "dead_test", "tile_mask", "tile_body",
+        "counters_release_refill"))
+    # the dead row passes every stage with one barrier
+    u, v, state = (torch.from_numpy(a).to(cuda_device)
+                   for a in _window_case("dead_row", 64, 1))
+    kernel.window_tier(u, v, state.to(torch.uint8), tile_size=64, spec=sp,
+                       profile=prof)
+    cyc = dict(zip(kernel.WINDOW_PROFILE_FIELDS, prof.tolist()))
+    assert cyc["dead_stages"] == 2 * 2 and cyc["walked_tiles"] == 0
+
+
+@pytest.mark.cuda
+def test_window_instance_follows_the_shape(cuda_device):
+    """At the edge of the int32 ring (window 47,532, one stage) the new
+    kernel launches; one 16-byte row further, and for a row that is not
+    whole 16-byte units, the first kernel does; profile= there raises."""
+    i32 = StateSpec.legacy_i32()
+    for window, spec, name in ((47_532, i32, kernel.WINDOW_ASYNC),
+                               (47_536, i32, kernel.WINDOW_TIER),
+                               (100, StateSpec.u8(), kernel.WINDOW_TIER),
+                               (65_536, StateSpec.u8(), kernel.WINDOW_ASYNC)):
+        rng = np.random.default_rng(window)
+        u = torch.from_numpy(rng.integers(0, window, (1, 512))
+                             .astype(np.int32)).to(cuda_device)
+        v = torch.from_numpy(rng.integers(0, window, (1, 512))
+                             .astype(np.int32)).to(cuda_device)
+        st0 = torch.zeros((1, window), dtype=spec.vmem_dtype,
+                          device=cuda_device)
+        kernel.reset_launch_counts()
+        got = kernel.window_tier(u, v, st0, tile_size=256, spec=spec)
+        want = ref.ref_window_tier(u, v, st0, tile_size=256, spec=spec)
+        torch.cuda.synchronize()
+        _same(*zip(got, want))
+        assert kernel.launch_counts()[name] == 1, (window, name)
+    prof = torch.zeros(len(kernel.WINDOW_PROFILE_FIELDS), dtype=torch.int64,
+                       device=cuda_device)
+    ids = torch.full((1, 256), -1, dtype=torch.int32, device=cuda_device)
+    st0 = torch.zeros((1, 47_536), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="first window tier"):
+        kernel.window_tier(ids, ids, st0, tile_size=256, spec=i32,
+                           profile=prof)
+
+
+@pytest.mark.cuda
+def test_match_window_defaults_to_the_card(cuda_device):
+    """``skipper_match_window`` given CPU tensors and no device runs the
+    new kernel on the card and returns CUDA tensors."""
+    rng = np.random.default_rng(2)
+    u = torch.from_numpy(rng.integers(0, 128, 700).astype(np.int32))
+    v = torch.from_numpy(rng.integers(0, 128, 700).astype(np.int32))
+    st0 = torch.zeros(128, dtype=torch.uint8)
+    kernel.reset_launch_counts()
+    got = skipper_match_window(u, v, st0, 64)
+    assert kernel.launch_counts()[kernel.WINDOW_ASYNC] == 1
+    assert all(t.device.type == "cuda" for t in got)
+    want = skipper_match_window(u, v, st0, 64, device="cpu")
+    _same(*((a.cpu(), b) for a, b in zip(got, want)))
 
 
 # ----------------------------------------------- the asynchronous global tier --
@@ -312,7 +492,7 @@ def test_analyzer_clean_on_built_kernels(cuda_device):
 
     report = run_analysis()
     assert report.clean, report.render()
-    assert len(report.targets_analyzed) == 27
+    assert len(report.targets_analyzed) == 31
 
 
 @pytest.mark.cuda

@@ -250,6 +250,7 @@ def test_window_tier_wrapper_on_cpu_is_plain(rmat9_schedule):
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert kernel.launch_counts() == {kernel.WINDOW_TIER: 0,
+                                      kernel.WINDOW_ASYNC: 0,
                                       kernel.BOUNDARY: 0,
                                       kernel.BOUNDARY_ASYNC: 0}
 

@@ -98,6 +98,24 @@ def test_default_device_raises_without_cuda(monkeypatch):
         skipper_match(path_graph(10), device="cuda")
 
 
+def test_match_window_default_device_raises_without_cuda(monkeypatch):
+    """``skipper_match_window`` runs on the card unless given the CPU, as
+    the other entry points do: without a card it raises, naming itself,
+    even for CPU tensors; with ``device="cpu"`` it runs the plain version
+    and launches nothing."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    u = torch.arange(8, dtype=torch.int32)
+    st0 = torch.zeros(16, dtype=torch.uint8)
+    with pytest.raises(RuntimeError, match="no CUDA device: "
+                       "skipper_match_window"):
+        skipper_match_window(u, u + 1, st0, tile_size=8)
+    kernel.reset_launch_counts()
+    state, matched, _ = skipper_match_window(u, u + 1, st0, tile_size=8,
+                                             device="cpu")
+    assert state.device.type == "cpu" and int(matched.sum()) == 4
+    assert set(kernel.launch_counts().values()) == {0}
+
+
 @pytest.mark.parametrize("default", ["cpu", "cuda"])
 def test_resolve_device_default_and_refusal(monkeypatch, default):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -132,7 +150,7 @@ def test_cuda_backend_refuses_cpu_tensors():
     u = torch.arange(8, dtype=torch.int32)
     with pytest.raises(ValueError, match="backend='cuda'"):
         skipper_match_window(u, u + 1, torch.zeros(16, dtype=torch.uint8),
-                             tile_size=8, backend="cuda")
+                             tile_size=8, backend="cuda", device="cpu")
     rows = u.reshape(1, 8)
     with pytest.raises(ValueError, match="backend='cuda'"):
         engine.window_tier_pass(rows, rows, window=16, tiles_per_window=1,
@@ -146,6 +164,7 @@ def test_cpu_default_backend_is_plain():
     r = skipper_match(path_graph(40), window=16, tile_size=8, device="cpu")
     assert int(r.match_mask.sum()) == 20
     assert kernel.launch_counts() == {kernel.WINDOW_TIER: 0,
+                                      kernel.WINDOW_ASYNC: 0,
                                       kernel.BOUNDARY: 0,
                                       kernel.BOUNDARY_ASYNC: 0}
 
@@ -230,6 +249,60 @@ def test_shared_memory_budget():
     i32 = kernel.window_tier_smem_bytes(65536, 256, StateSpec.legacy_i32())
     assert u8 == 65536 + 9 * 256 <= kernel.MAX_SMEM_BYTES < i32
     assert kernel.window_tier_smem_bytes(3, 4) == 4 + 36
+
+
+def test_window_async_shared_memory_and_instance():
+    """The asynchronous window tier's shared memory and the shape rule that
+    picks its ring depth and its kernel. At the full-scale configuration
+    (u8, window 65536, tile 256) the row, a 4-stage ring of 16 tiles and
+    the static arrays fit; legacy_i32 at tile 256 keeps a 1-stage ring up
+    to window 47,532 and takes the first kernel from 47,536 (the next
+    16-byte row); a row that is not whole 16-byte units takes the first
+    kernel too."""
+    u8, i32 = StateSpec.u8(), StateSpec.legacy_i32()
+    assert kernel.WINDOW_ASYNC_STATIC_SMEM == 9_544
+    stage = kernel.window_stage_bytes(256)
+    assert stage == 8 * kernel.WINDOW_STAGE_TILES * 256 == 32_768
+    assert kernel.window_ring_stages(65536, 256, u8) == 4
+    full = kernel.window_async_smem_bytes(65536, 256, u8)
+    assert full == 65536 + 4 * stage
+    assert full + kernel.WINDOW_ASYNC_STATIC_SMEM == 206_152
+    assert full + kernel.WINDOW_ASYNC_STATIC_SMEM <= kernel.MAX_SMEM_BYTES
+    assert kernel.window_instance(65536, 256, u8) == "async"
+    # a wider tile, a narrower window: the deepest ring that fits
+    assert kernel.window_ring_stages(65536, 1024, u8) == 1
+    assert kernel.window_ring_stages(2048, 256, u8) == 6
+    assert kernel.window_ring_stages(256, 64, u8) == kernel.WINDOW_RING_STAGES
+    # the edge where the ring stops fitting beside an int32 row
+    edge = kernel.window_async_smem_bytes(47_532, 256, i32, 1)
+    assert edge + kernel.WINDOW_ASYNC_STATIC_SMEM <= kernel.MAX_SMEM_BYTES
+    assert kernel.window_ring_stages(47_532, 256, i32) == 1
+    assert kernel.window_instance(47_532, 256, i32) == "async"
+    over = kernel.window_async_smem_bytes(47_536, 256, i32, 1)
+    assert over + kernel.WINDOW_ASYNC_STATIC_SMEM > kernel.MAX_SMEM_BYTES
+    assert kernel.window_ring_stages(47_536, 256, i32) == 0
+    assert kernel.window_instance(47_536, 256, i32) == "sync"
+    # ... where the first kernel still fits
+    assert (kernel.window_tier_smem_bytes(47_536, 256, i32)
+            <= kernel.MAX_SMEM_BYTES)
+    assert kernel.window_instance(65536, 256, i32) == "sync"
+    # rows padded to 16 bytes; a row of 100 u8 cells is not whole units
+    assert kernel.window_async_smem_bytes(100, 128, u8, 0) == 112
+    assert kernel.window_instance(100, 128, u8) == "sync"
+    assert kernel.window_instance(96, 128, u8) == "async"
+    assert kernel.window_instance(100, 128, i32) == "async"
+
+
+def test_window_wrappers_on_cpu():
+    """On CPU tensors ``window_tier`` runs the plain version and refuses a
+    cycle profile; ``window_tier_sync`` launches a CUDA kernel only."""
+    u = torch.full((1, 64), -1, dtype=torch.int32)
+    st0 = torch.zeros((1, 32), dtype=torch.uint8)
+    prof = torch.zeros(len(kernel.WINDOW_PROFILE_FIELDS), dtype=torch.int64)
+    with pytest.raises(ValueError, match="profile"):
+        kernel.window_tier(u, u, st0, tile_size=64, profile=prof)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        kernel.window_tier_sync(u, u, st0, tile_size=64)
 
 
 def test_launch_counts_reset():

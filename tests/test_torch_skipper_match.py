@@ -179,7 +179,7 @@ def test_skipper_match_window_equal(spec, fallback, vector_rounds):
         torch.from_numpy(u.astype(np.int32)),
         torch.from_numpy(v.astype(np.int32)), torch.from_numpy(st0),
         tile_size=64, vector_rounds=vector_rounds, fallback=fallback,
-        spec=getattr(StateSpec, spec)())
+        spec=getattr(StateSpec, spec)(), device="cpu")
     for a, b in zip(port, ref):
         assert a.dtype == getattr(torch, str(np.asarray(b).dtype))
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))

@@ -10,11 +10,13 @@ Phases (any failure raises and exits non-zero):
 
 1. Identity: the card's name, and its name and power limit from nvidia-smi.
 2. Build: one nvcc for each kernel source (``skipper_match.cu``,
-   ``flash_attention.cu``, ``flash_attention_wgmma.cu`` and the analyzer's
-   canaries ``mutants.cu``), all started together, for sm_90a, then their
-   PTX the same way; the build times and ptxas reports are printed, and
-   the PTX must hold the instructions the redesigned kernels are built
-   from (``wgmma.mma_async``, TMA with mbarrier completion, ``setmaxnreg``;
+   ``flash_attention.cu``, ``flash_attention_wgmma.cu``,
+   ``flash_attention_tf32.cu`` and the analyzer's canaries ``mutants.cu``),
+   all started together, for sm_90a, then their PTX the same way; the
+   build times and ptxas reports are printed, and the PTX must hold the
+   instructions the redesigned kernels are built from (``wgmma.mma_async``,
+   in ``.tf32`` with ``cvt.rna.tf32`` in the three-term source, TMA with
+   mbarrier completion, ``setmaxnreg``;
    bulk and 4-byte asynchronous copies, mbarrier waits; and in each
    instance of the asynchronous window tier its bulk copies in and out,
    its cp.async fills, its mbarrier waits, the proxy fence and the
@@ -56,22 +58,30 @@ Phases (any failure raises and exits non-zero):
    on the canonical schedule's global tier, where all three are timed. A
    JSON line gives the findings by rule and severity and each kernel's
    registers, shared memory and stack.
-5. Flash attention: the kernel the entry point picks (the tensor-core
-   kernel for bf16, the CUDA-core kernel for f32) against its plain
+5. Flash attention: the kernel the entry point picks (the bf16
+   tensor-core kernel for bf16 at D 64 and 128; the three-term TF32 kernel,
+   after its pre-pass, for f32 and for bf16 at D 80) against its plain
    online-softmax version and against the model's chunked attention on
    the same CUDA inputs, in f32 and bf16, at granite-moe-3b-a800m's
-   attention widths (S 128, 1024, 4096, causal; one non-causal case) and
-   at mixtral-8x7b's with its sliding window; in bf16 the CUDA-core kernel
-   too, and the tensor-core kernel with P in one and in two bf16 terms,
-   whose misses of the one-step criterion are counted (not held). Then
+   attention widths (S 128, 1024, 4096, causal; one non-causal case), at
+   mixtral-8x7b's with its sliding window and at zamba2-2.7b's (Hq = Hkv =
+   32, D = 80, S 4096); the pre-pass bit for bit against
+   ``ref.tf32_planes``; in bf16 the CUDA-core kernel too (the yardstick),
+   and the bf16 tensor-core kernel with P in one and in two bf16 terms,
+   whose misses of the one-step criterion are counted (not held). The
+   zamba2 case is timed in both dtypes beside the CUDA-core kernel. Then
    the path, the ``flash_attention`` entry point at granite's prefill_32k
-   attention shape in bf16 and in f32, once with the launch counts reset
-   just before it, and both kernels, the plain version and
-   ``scaled_dot_product_attention`` timed there in both dtypes (in f32
-   through its memory-efficient backend, on K and V repeated to the query
-   heads: its GQA form runs only in the flash and math backends, and the
-   math one would hold the 32K-square scores); the kernels and f32 SDPA
-   are held against the plain version at that shape too (2e-5 in f32).
+   attention shape in bf16 and in f32 (inputs drawn in f32: upcast bf16
+   values are exact in TF32 and would never exercise the lo terms), once
+   with the launch counts reset just before it (the CUDA-core kernel must
+   not launch), and the kernels (the three-term one alone on its planes,
+   its pre-pass alone, and whole), the CUDA-core kernel, the plain
+   version and ``scaled_dot_product_attention`` timed there in both
+   dtypes (in f32 through its memory-efficient backend, on K and V
+   repeated to the query heads: its GQA form runs only in the flash and
+   math backends, and the math one would hold the 32K-square scores); the
+   kernels and f32 SDPA are held against the plain version at that shape
+   too (2e-5 in f32).
 6. Serving: ``repro_torch.launch.serve.serve`` on granite-moe-3b-a800m at
    full width and depth (bf16, seeded weights, Skipper router), 8 requests
    on 4 slots, prompts of 512, 32 new tokens, twice. The first run records
@@ -118,11 +128,17 @@ REPLACES = {
         "src/repro/kernels/flash_attention/kernel.py:28",
     "flash_attention_wgmma_kernel":
         "src/repro/kernels/flash_attention/kernel.py:28",
+    "flash_attention_tf32x3_kernel":
+        "src/repro/kernels/flash_attention/kernel.py:28",
+    "flash_split_tf32_kernel":
+        "src/repro/kernels/flash_attention/kernel.py:28",
 }
 SOURCE = "src/repro_torch/kernels/skipper_match/csrc/skipper_match.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FLASH_WGMMA_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention_wgmma.cu")
+FLASH_TF32_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+                     "flash_attention_tf32.cu")
 WINDOW, WINDOW_ASYNC, BOUNDARY, ASYNC = ("skipper_window_tier_kernel",
                                          "skipper_window_async_kernel",
                                          "skipper_boundary_kernel",
@@ -816,6 +832,9 @@ FLASH_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 6e-2)}
 BF16_STEP_FLOOR = 1e-6
 GRANITE_ATTN = dict(b=1, hq=24, hkv=8, d=64)
 MIXTRAL_ATTN = dict(b=1, hq=32, hkv=8, d=128)
+#: zamba2-2.7b's attention widths (src/repro/configs/zamba2_2_7b.py: d_model
+#: 2560, 32 heads, no grouping): head dim 80
+ZAMBA2_ATTN = dict(b=1, hq=32, hkv=32, d=80)
 
 
 def flash_inputs(gen, b, hq, hkv, s, d, dtype, dev):
@@ -851,6 +870,7 @@ def flash_cases():
     cases.append(("granite S=1024 non-causal", GRANITE_ATTN, 1024, False, 0))
     cases.append(("mixtral S=8192 window=4096", MIXTRAL_ATTN, 8192, True,
                   4096))
+    cases.append(("zamba2 S=4096", ZAMBA2_ATTN, 4096, True, 0))
     return cases
 
 
@@ -866,17 +886,20 @@ def phase_flash(dev, seed: int):
 
     from repro_torch.kernels.flash_attention import flash_attention, kernel
     from repro_torch.kernels.flash_attention.ref import (
-        online_softmax_attention)
+        online_softmax_attention, tf32_planes)
     from repro_torch.models.layers import gqa_attention_chunked
     from repro_torch.roofline import h100
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(seed)
-    worst = {kernel.FLASH: 0.0, kernel.FLASH_WGMMA: 0.0}
+    worst = {kernel.FLASH: 0.0, kernel.FLASH_WGMMA: 0.0,
+             kernel.FLASH_TF32: 0.0, kernel.FLASH_SPLIT: 0}
+    worst_f32 = 0.0     # the three-term kernel's, on f32 inputs only
     # why P is split in three: the outputs one and two bf16 terms leave
     # more than one step from the plain version (reported, not held)
     p_term_misses = {}
+    zamba2 = {}
     t0 = time.perf_counter()
     for label, w, s, causal, window in flash_cases():
         for dtype in (torch.float32, torch.bfloat16):
@@ -885,9 +908,9 @@ def phase_flash(dev, seed: int):
                                    dtype, dev)
             blk = min(128, s)
             name = kernel.kernel_for(dtype, w["d"])
-            got = kernel.flash_attention_cuda(
-                q, k, v, causal=causal, window=window,
-                sm_scale=w["d"] ** -0.5, block_q=blk, block_k=blk)
+            kw = dict(causal=causal, window=window, sm_scale=w["d"] ** -0.5)
+            got = kernel.flash_attention_cuda(q, k, v, **kw, block_q=blk,
+                                              block_k=blk)
             plain = online_softmax_attention(q, k, v, block_q=blk,
                                              block_k=blk, causal=causal,
                                              window=window)
@@ -906,36 +929,73 @@ def phase_flash(dev, seed: int):
                     f"flash {label} {dtype}: kernel and plain version or "
                     "model attention disagree")
             worst[name] = max(worst[name], err)
+            if name == kernel.FLASH_TF32 and dtype == torch.float32:
+                worst_f32 = max(worst_f32, err)
+            if name == kernel.FLASH_TF32:
+                # the pre-pass, bit for bit against the plain split
+                planes = kernel.split_tf32_cuda(q, k, v, w["d"] ** -0.5)
+                want = tf32_planes(q, k, v, w["d"] ** -0.5)
+                for plane, x in planes.items():
+                    require((x is None) == (want[plane] is None),
+                            f"flash {label}: pre-pass plane {plane}")
+                    if x is not None:
+                        worst[kernel.FLASH_SPLIT] = max(
+                            worst[kernel.FLASH_SPLIT],
+                            int((x != want[plane]).sum()))
+                require(worst[kernel.FLASH_SPLIT] == 0,
+                        f"flash {label} {dtype}: the pre-pass differs from "
+                        "ref.tf32_planes")
+                del planes, want
             if dtype == torch.bfloat16:
                 # the CUDA-core kernel on the same bf16 inputs
                 old = kernel.flash_attention_cuda_cores(
-                    q, k, v, causal=causal, window=window,
-                    sm_scale=w["d"] ** -0.5, block_q=blk, block_k=blk)
+                    q, k, v, **kw, block_q=blk, block_k=blk)
                 err_old, ok = compare_flash(old, plain)
                 require(ok, f"flash {label}: the CUDA-core kernel and the "
                         f"plain version disagree ({err_old})")
                 worst[kernel.FLASH] = max(worst[kernel.FLASH], err_old)
-                p_term_misses[label] = [step_misses(
-                    kernel.flash_attention_wgmma_p_terms(
-                        q, k, v, causal=causal, window=window,
-                        sm_scale=w["d"] ** -0.5, p_terms=n), plain)
-                    for n in (1, 2)]
+                if name == kernel.FLASH_WGMMA:
+                    p_term_misses[label] = [step_misses(
+                        kernel.flash_attention_wgmma_p_terms(
+                            q, k, v, **kw, p_terms=n), plain)
+                        for n in (1, 2)]
                 del old
+            if w is ZAMBA2_ATTN:
+                # head dim 80 on the tensor cores beside the CUDA-core kernel
+                blocks = dict(block_q=blk, block_k=blk)
+                new_ms, _ = cuda_time(lambda: kernel.flash_attention_cuda(
+                    q, k, v, **kw, **blocks), reps=3)
+                old_ms, _ = cuda_time(
+                    lambda: kernel.flash_attention_cuda_cores(
+                        q, k, v, **kw, **blocks), reps=2)
+                bound, bound_by = h100.flash_bound_ms(
+                    w["b"], w["hq"], w["hkv"], s, w["d"], str(dtype)[6:])
+                zamba2[str(dtype)[6:]] = {
+                    "kernel": name, "kernel_ms": new_ms,
+                    "cuda_core_kernel_ms": old_ms, "bound_ms": bound,
+                    "bound_by": bound_by, "kernel_vs_plain_err": err,
+                    "kernel_vs_model_err": err_model}
             del q, k, v, got, plain, model
 
     # the path: the entry point at granite's prefill_32k attention shape,
-    # in bf16 (the tensor-core kernel) and in f32 (the CUDA-core kernel)
+    # in bf16 (the bf16 tensor-core kernel) and in f32 (the three-term
+    # kernel after its pre-pass), the f32 inputs drawn in f32
     w, s = GRANITE_ATTN, 32768
     q, k, v = flash_inputs(gen, w["b"], w["hq"], w["hkv"], s, w["d"],
                            torch.bfloat16, dev)
-    q32, k32, v32 = (t.float() for t in (q, k, v))
+    q32, k32, v32 = flash_inputs(gen, w["b"], w["hq"], w["hkv"], s, w["d"],
+                                 torch.float32, dev)
     kernel.reset_launch_counts()
     out = flash_attention(q, k, v, causal=True)
     out32 = flash_attention(q32, k32, v32, causal=True)
     torch.cuda.synchronize()
     launches = kernel.launch_counts()
-    require(launches[kernel.FLASH_WGMMA] > 0 and launches[kernel.FLASH] > 0,
+    require(launches[kernel.FLASH_WGMMA] > 0
+            and launches[kernel.FLASH_TF32] > 0
+            and launches[kernel.FLASH_SPLIT] > 0,
             f"flash_attention did not launch its kernels: {launches}")
+    require(launches[kernel.FLASH] == 0,
+            f"flash_attention launched the CUDA-core kernel: {launches}")
     require(bool(torch.isfinite(out).all())
             and bool(torch.isfinite(out32).all()), "prefill_32k: non-finite")
     del out, out32
@@ -971,18 +1031,40 @@ def phase_flash(dev, seed: int):
     bound, bound_by = h100.flash_bound_ms(w["b"], w["hq"], w["hkv"], s,
                                           w["d"], "bfloat16")
     del q, k, v, got, old, lib, plain
-    # the same shape in f32, held at 2e-5: the CUDA-core kernel, the plain
-    # version and SDPA (memory-efficient backend, K and V repeated to the
-    # query heads; see the module docstring), all on the same inputs
+    # the same shape in f32, held at 2e-5: the three-term kernel (whole,
+    # its pre-pass alone, and the main kernel alone on the pre-pass's
+    # planes), the CUDA-core kernel, the plain version and SDPA
+    # (memory-efficient backend, K and V repeated to the query heads; see
+    # the module docstring), all on the same f32-drawn inputs
     f32_ms, got = cuda_time(lambda: kernel.flash_attention_cuda(
+        q32, k32, v32, **kw, **blocks), reps=3)
+    split_ms, planes = cuda_time(lambda: kernel.split_tf32_cuda(
+        q32, k32, v32, kw["sm_scale"]), reps=3)
+    main_out = torch.empty_like(q32)
+    main_ms, main = cuda_time(lambda: kernel.tf32x3_on_planes(
+        planes, main_out, w["hkv"], causal=True, window=0), reps=3)
+    require(torch.equal(main, got), "prefill_32k f32: the main kernel on "
+            "the pre-pass's planes differs from the entry point")
+    split_plain_ms, want = cuda_time(lambda: tf32_planes(
+        q32, k32, v32, kw["sm_scale"]))
+    split_diff = sum(int((x != want[n]).sum()) for n, x in planes.items())
+    require(split_diff == 0, f"prefill_32k f32: the pre-pass differs from "
+            f"ref.tf32_planes in {split_diff} elements")
+    del planes, want, main, main_out
+    old32_ms, old32 = cuda_time(lambda: kernel.flash_attention_cuda_cores(
         q32, k32, v32, **kw, **blocks))
     plain32_ms, plain = cuda_time(lambda: online_softmax_attention(
         q32, k32, v32, block_q=128, block_k=128, causal=True))
     err_f32, ok = compare_flash(got, plain)
     require(ok, f"prefill_32k f32: kernel and plain version disagree "
             f"({err_f32}, tolerance 2e-5)")
-    worst[kernel.FLASH] = max(worst[kernel.FLASH], err_f32)
-    del got
+    err_old32, ok = compare_flash(old32, plain)
+    require(ok, f"prefill_32k f32: the CUDA-core kernel and the plain "
+            f"version disagree ({err_old32}, tolerance 2e-5)")
+    worst[kernel.FLASH_TF32] = max(worst[kernel.FLASH_TF32], err_f32)
+    worst_f32 = max(worst_f32, err_f32)
+    worst[kernel.FLASH] = max(worst[kernel.FLASH], err_old32)
+    del got, old32
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     k32r, v32r = (t.repeat_interleave(w["hq"] // w["hkv"], 1)
@@ -997,6 +1079,11 @@ def phase_flash(dev, seed: int):
             f"({err_lib32}, tolerance 2e-5)")
     bound32, bound32_by = h100.flash_bound_ms(w["b"], w["hq"], w["hkv"], s,
                                               w["d"], "float32")
+    cuda_core_bound32 = h100.flash_cuda_core_bound_ms(w["b"], w["hq"], s,
+                                                      w["d"])
+    # the pre-pass reads q, k and v once and writes each as a hi and a lo
+    # plane, all f32 (no padding at D = 64)
+    split_bound = h100.bytes_ms(3 * 4 * (q32.numel() + 2 * k32.numel()))
     del q32, k32, v32, k32r, v32r, lib32, plain
     # kernels and plain version beside each other at S = 4096
     q, k, v = flash_inputs(gen, w["b"], w["hq"], w["hkv"], 4096, w["d"],
@@ -1011,15 +1098,24 @@ def phase_flash(dev, seed: int):
     metrics = {
         "shape": "B=1 S=32768 Hq=24 Hkv=8 D=64 causal bf16",
         "kernel_ms": ms, "cuda_core_kernel_ms": old_ms,
-        "cuda_core_kernel_f32_ms": f32_ms, "plain_ms": plain_ms,
+        "cuda_core_kernel_f32_ms": old32_ms, "plain_ms": plain_ms,
         "sdpa_ms": lib_ms, "bound_ms": bound, "bound_by": bound_by,
-        "f32": {"kernel_ms": f32_ms, "plain_ms": plain32_ms,
+        "f32": {"inputs": "drawn in f32",
+                "kernel": kernel.FLASH_TF32, "kernel_ms": f32_ms,
+                "main_kernel_ms": main_ms, "pre_pass_ms": split_ms,
+                "pre_pass_plain_ms": split_plain_ms,
+                "pre_pass_bound_ms": split_bound,
+                "cuda_core_kernel_ms": old32_ms, "plain_ms": plain32_ms,
                 "sdpa_ms": lib32_ms, "bound_ms": bound32,
                 "bound_by": bound32_by,
+                "cuda_core_bound_ms": cuda_core_bound32,
                 "kernel_over_bound": f32_ms / bound32,
                 "kernel_over_sdpa": f32_ms / lib32_ms,
+                "cuda_core_over_kernel": old32_ms / f32_ms,
                 "kernel_vs_plain_err": err_f32,
+                "cuda_core_vs_plain_err": err_old32,
                 "sdpa_vs_plain_err": err_lib32},
+        "zamba2_s4096": zamba2,
         "kernel_over_bound": ms / bound, "kernel_over_sdpa": ms / lib_ms,
         "p_terms": kernel.P_TERMS,
         "kernel_ms_by_p_terms": {1: terms_ms[1], 2: terms_ms[2],
@@ -1029,6 +1125,7 @@ def phase_flash(dev, seed: int):
         "kernel_vs_plain_err_f32": err_f32, "kernel_vs_sdpa_err": err_lib,
         "kernel_ms_s4096": ms_4k, "cuda_core_kernel_ms_s4096": old_4k,
         "plain_ms_s4096": plain_4k, "launches_on_path": launches,
+        "worst_err": worst, "worst_err_tf32x3_f32": worst_f32,
         "seconds": time.perf_counter() - t0,
     }
     log("flash metrics: " + json.dumps(metrics))
@@ -1040,12 +1137,31 @@ def phase_flash(dev, seed: int):
          "max_abs_err": worst[kernel.FLASH_WGMMA], "ms": ms,
          "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
          "library_ms": lib_ms},
-        # the f32 and D = 80 kernel, on the path's f32 call (its bf16 time
-        # is cuda_core_kernel_ms in the metrics line)
+        # f32 and D = 80: the main kernel alone on the pre-pass's planes
+        # at the path's f32 call (the whole call is f32.kernel_ms in the
+        # metrics line)
+        {"name": kernel.FLASH_TF32, "route": "cuda",
+         "source": FLASH_TF32_SOURCE,
+         "replaces": REPLACES[kernel.FLASH_TF32],
+         "launches": launches[kernel.FLASH_TF32],
+         "max_abs_err": worst[kernel.FLASH_TF32], "ms": main_ms,
+         "plain_ms": plain32_ms, "bound_ms": bound32,
+         "bound_by": bound32_by, "library_ms": lib32_ms},
+        # its pre-pass: no single PyTorch call splits to TF32 planes
+        {"name": kernel.FLASH_SPLIT, "route": "cuda",
+         "source": FLASH_TF32_SOURCE,
+         "replaces": REPLACES[kernel.FLASH_SPLIT],
+         "launches": launches[kernel.FLASH_SPLIT],
+         "max_abs_err": worst[kernel.FLASH_SPLIT], "ms": split_ms,
+         "plain_ms": split_plain_ms, "bound_ms": split_bound,
+         "bound_by": "bytes", "library_ms": None},
+        # the first kernel, now on no path: the yardstick, on the path's
+        # f32 inputs (its bf16 time is cuda_core_kernel_ms in the metrics
+        # line; its CUDA-core bound f32.cuda_core_bound_ms)
         {"name": kernel.FLASH, "route": "cuda", "source": FLASH_SOURCE,
-         "replaces": REPLACES[kernel.FLASH],
+         "replaces": REPLACES[kernel.FLASH], "status": "superseded",
          "launches": launches[kernel.FLASH],
-         "max_abs_err": worst[kernel.FLASH], "ms": f32_ms,
+         "max_abs_err": worst[kernel.FLASH], "ms": old32_ms,
          "plain_ms": plain32_ms, "bound_ms": bound32,
          "bound_by": bound32_by, "library_ms": lib32_ms},
     ]
@@ -1310,7 +1426,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     sources = (kernel.SOURCE, flash.SOURCE, flash.WGMMA_SOURCE,
-               mutations.SOURCE)
+               flash.TF32_SOURCE, mutations.SOURCE)
     built = _build.build(*sources)
     log(f"build: {time.perf_counter() - t0:.1f} s for {len(built)} sources")
     for info in built.values():
@@ -1325,6 +1441,9 @@ def main() -> int:
     for source, needed in (
             (flash.WGMMA_SOURCE, ("wgmma.mma_async", "cp.async.bulk.tensor",
                                   "mbarrier::complete_tx", "setmaxnreg")),
+            (flash.TF32_SOURCE, ("f32.tf32.tf32", "cvt.rna.tf32.f32",
+                                 "cp.async.bulk.tensor",
+                                 "mbarrier::complete_tx", "setmaxnreg")),
             (kernel.SOURCE, ("cp.async.bulk.shared", "cp.async.ca.shared",
                              "mbarrier.try_wait"))):
         text = Path(str(ptx[str(source)]["path"])).read_text()

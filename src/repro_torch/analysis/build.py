@@ -28,12 +28,22 @@ symbol, and the terms built from parameters or from other invariant
 values, as a dynamic layout offsets its arrays (``tu`` lies
 ``align4(window * sizeof(S))`` bytes past the state row). Constants and
 ``%ntid`` multiples are strides and unrolled steps inside a region and
-are left out. An address chosen by ``selp`` between two readable shared
-addresses lies in either arm's region (a tuple of the two). Two accesses
-whose regions differ are taken not to alias:
-each kernel indexes its arrays in bounds, which the kernels' own checks
-and the plain-version comparisons hold. An access whose address has no
-readable shared base falls in every region.
+are left out. A base rounded up to an alignment (``and`` with ``-2^k``)
+and an ``or`` with a small immediate keep their operand's region. An
+address chosen by ``selp`` between two readable shared addresses lies in
+either arm's region (a tuple of the two). Two accesses whose regions
+differ are taken not to alias: each kernel indexes its arrays in bounds,
+which the kernels' own checks and the plain-version comparisons hold. An
+access whose address has no readable shared base falls in every region.
+
+Regions carved from one dynamic buffer. A kernel carves its arrays out of
+one ``extern`` buffer at run-time offsets (a parameter, or an offset built
+from one), and each such array is a region of its own. An address that
+adds a lane- or iteration-dependent multiple of a run-time offset (a
+``mul`` of a varying value by an invariant one, as ``smem + slot *
+row_bytes`` picks one of two carved rows) may land in any region carved at
+a multiple of that offset from its base: it lies in each of them (a tuple,
+as for ``selp``).
 
 Asynchronous copies. A copy into shared memory (``cp.async``,
 ``cp.async.bulk``, ``cp.async.bulk.tensor``) is an *async write* of its
@@ -44,6 +54,14 @@ attached to one by ``cp.async.mbarrier.arrive``, or completes at
 ``cp.async.wait_group``/``wait_all``). :meth:`PtxEntry.sync_event` reads
 the instructions that order them: an mbarrier wait, an mbarrier arrive,
 those attachments and group waits, and ``cp.async.bulk.wait_group``.
+
+The async proxy. A ``wgmma.mma_async`` reads its shared operands through
+the async proxy: it is an *async read* of the regions its descriptors
+point into (a descriptor's address is traced back through the ``and``,
+``shr``, ``cvt`` and ``or`` that pack it), completed by
+``wgmma.wait_group 0``. A bulk copy out of shared memory is an async read
+too. ``fence.proxy.async`` (on shared memory) makes a thread's generic
+writes visible to the async proxy.
 """
 from __future__ import annotations
 
@@ -192,6 +210,10 @@ def demangle(mangled: str) -> Demangled:
 # ----------------------------------------------------------------- PTX ----
 
 _SPACES = ("global", "shared", "local", "param", "const", "tex")
+#: an ``or`` with an immediate below this adds it (to an aligned value)
+_SMALL_OR = 4096
+#: how far back :meth:`_Forms.steps` and :meth:`_Forms.desc_region` look
+_STEP_DEPTH = 8
 _INVARIANT_KINDS = {"sym", "param", "ntid", "ctaid", "const", "inv"}
 _KEY_KINDS = {"sym", "param", "ctaid", "inv"}
 
@@ -221,7 +243,8 @@ class Access:
     asynchronous copy (kind "st" into shared memory, "ld" out of it);
     ``tag`` is an async write's completion: the region of its mbarrier,
     "group" for a ``cp.async`` not yet attached to one, None when the
-    mbarrier's address is unreadable."""
+    mbarrier's address is unreadable; "wgmma" for a ``wgmma.mma_async``'s
+    read of its operands."""
 
     instr: Instr
     kind: str
@@ -267,9 +290,12 @@ class PtxEntry:
         this thread is done with what it read), "attach"
         (``cp.async.mbarrier.arrive``: the thread's pending ``cp.async``
         complete on that barrier), "group_wait" (``cp.async.wait_group`` /
-        ``wait_all``) and "bulk_wait" (``cp.async.bulk.wait_group``: the
-        thread's bulk copies out of shared memory are done). Predicated
-        instructions order nothing."""
+        ``wait_all``), "bulk_wait" (``cp.async.bulk.wait_group``: the
+        thread's bulk copies out of shared memory are done), "wgmma_wait"
+        (``wgmma.wait_group 0``: the warpgroup's products have read their
+        operands) and "proxy_fence" (``fence.proxy.async`` on shared
+        memory: the thread's generic writes are visible to the async
+        proxy). Predicated instructions order nothing."""
         if ins.pred is not None:
             return None
         op = ins.op
@@ -283,6 +309,12 @@ class PtxEntry:
             return "group_wait", None
         if op.startswith("cp.async.bulk.wait_group"):
             return "bulk_wait", None
+        if op.startswith("wgmma.wait_group") and ins.args and \
+                _imm(ins.args[0]) == 0:
+            return "wgmma_wait", None
+        if op in ("fence.proxy.async", "fence.proxy.async.shared::cta",
+                  "fence.proxy.async.shared::cluster"):
+            return "proxy_fence", None
         return None
 
     def _forms(self) -> "_Forms":
@@ -410,6 +442,41 @@ def _imm(tok: str) -> Optional[int]:
     return None
 
 
+def _align_mask(tok: str) -> bool:
+    """An ``and`` mask ``-2^k`` (k >= 1; as a signed or a 32-bit
+    unsigned immediate) that rounds down to an alignment."""
+    v = _imm(tok)
+    if v is None:
+        return False
+    m = -v if v < 0 else (1 << 32) - v if v >= 1 << 31 else 0
+    return m >= 2 and m & (m - 1) == 0
+
+
+def _multiple(region: frozenset, base: frozenset, step: frozenset) -> bool:
+    """``region`` is ``base`` plus a nonzero integer multiple of
+    ``step`` (key parts, as sets of ``(atom, coefficient)``)."""
+    diff = _add(dict(region), dict(base), -1)
+    st = dict(step)
+    if not diff or set(diff) != set(st):
+        return False
+    ratios = {diff[k] / st[k] for k in st}
+    return len(ratios) == 1 and float(next(iter(ratios))).is_integer()
+
+
+def _union(regions):
+    """One region for accesses that may lie in any of ``regions`` (each a
+    region or a tuple of them): the region itself, a tuple of several, or
+    None when the list is empty or one is unreadable."""
+    found = set()
+    for r in regions:
+        if r is None:
+            return None
+        found |= set(r) if isinstance(r, tuple) else {r}
+    if not found:
+        return None
+    return found.pop() if len(found) == 1 else tuple(sorted(found, key=str))
+
+
 def _add(a: Dict, b: Dict, scale: int = 1) -> Dict:
     out = dict(a)
     for k, v in b.items():
@@ -436,6 +503,8 @@ class _Forms:
                     self.defs.setdefault(dest, []).append(ins)
         self.memo: Dict[str, Dict] = {}
         self.busy: set = set()
+        self.at_line: Dict[int, Instr] = {
+            ins.line: ins for b in entry.blocks for ins in b.instrs}
 
     @staticmethod
     def _dest(ins: Instr) -> Optional[str]:
@@ -503,6 +572,11 @@ class _Forms:
                 return _scale(self.operand(a[1]), -1)
             if base == "shl" and _imm(a[2]) is not None:
                 return _scale(self.operand(a[1]), 1 << _imm(a[2]))
+            if base == "and" and len(a) == 3 and _align_mask(a[2]):
+                return self.operand(a[1])     # rounded to an alignment
+            if base == "or" and len(a) == 3 and _imm(a[2]) is not None \
+                    and 0 <= _imm(a[2]) < _SMALL_OR:
+                return _add(self.operand(a[1]), {("const",): _imm(a[2])})
             if base in ("mul", "mad") and (".lo" in op or ".wide" in op):
                 x, y = a[1], a[2]
                 c = _imm(y) if _imm(y) is not None else _imm(x)
@@ -576,6 +650,56 @@ class _Forms:
         arms = tuple(self.region(f"[{x}]") for x in defs[0].args[1:3])
         return arms if all(r is not None for r in arms) else None
 
+    def steps(self, form: Dict, depth: int = 0) -> set:
+        """Run-time offsets (key parts) of which ``form`` may add a
+        varying multiple: the invariant factor of a ``mul`` behind one of
+        its varying terms, through ``selp``, ``add`` and the like, when
+        that factor is built from parameters with no constant added (an
+        array's row pitch such as ``(block_k + 1) * 4`` is none)."""
+        out: set = set()
+        if depth > _STEP_DEPTH:
+            return out
+        for key in form:
+            if key[0] != "var" or not str(key[1]).startswith("@"):
+                continue
+            ins = self.at_line.get(int(key[1][1:]))
+            if ins is None:
+                continue
+            regs = [x for x in ins.args[1:] if x.startswith("%")
+                    and not x.startswith("%p")]
+            if ins.op.split(".")[0] in ("mul", "mad"):
+                for x in regs[:2]:
+                    f = self.resolve(self.operand(x))
+                    # an offset plus a constant is a row pitch, not a carve
+                    if self.invariant(f) and self.key_part(f) \
+                            and ("const",) not in f:
+                        out.add(self.key_part(f))
+                continue
+            if ins.op.split(".")[0] in ("selp", "add", "sub", "mov", "cvt",
+                                        "min", "max", "shl"):
+                for x in regs:
+                    out |= self.steps(self.resolve(self.operand(x)),
+                                      depth + 1)
+        return out
+
+    def desc_region(self, tok: str, depth: int = 0):
+        """The region a wgmma descriptor register points into: the first
+        register behind it, through the instructions that pack a
+        descriptor, whose form has one shared base; a tuple when its
+        definitions point into several, None when unreadable."""
+        region = self.region(f"[{tok}]")
+        if region is not None or depth > _STEP_DEPTH \
+                or not tok.startswith("%"):
+            return region
+        found = []
+        for ins in self.defs.get(tok, []):
+            if ins.op.split(".")[0] not in ("and", "or", "shr", "shl", "cvt",
+                                            "mov", "add", "xor", "bfi"):
+                return None
+            found += [self.desc_region(x, depth + 1) for x in ins.args[1:]
+                      if x.startswith("%")]
+        return _union(found)
+
     def barrier_region(self, ins: Instr) -> Optional[frozenset]:
         """The region of the mbarrier an instruction names (its bracketed
         shared address operand)."""
@@ -607,12 +731,20 @@ class _Forms:
     def accesses(self) -> Dict[int, Access]:
         out: Dict[int, Access] = {}
         shared = self.entry.shared_symbols
+        carved: Dict[int, Tuple[frozenset, set]] = {}
         for b in self.entry.blocks:
             for ins in b.instrs:
                 if ins.op.startswith(("cp.async", "cp.reduce.async")):
                     a = self.async_access(ins)
                     if a is not None:
                         out[ins.line] = a
+                        addrs = [x for x in ins.args if x.startswith("[")]
+                        self._carve(carved, ins, a,
+                                    addrs[0 if a.kind == "st" else 1])
+                    continue
+                if ins.op.startswith("wgmma.mma_async"):
+                    out[ins.line] = Access(ins, "ld", self.operands(ins),
+                                           "async", "wgmma")
                     continue
                 parts = ins.op.split(".")
                 base = parts[0]
@@ -633,7 +765,33 @@ class _Forms:
                           if form is not None and len(syms) == 1
                           and form[syms[0]] == 1 else self.selected(addr_arg))
                 out[ins.line] = Access(ins, kind, region)
+                self._carve(carved, ins, out[ins.line], addr_arg)
+        regions = {a.region for a in out.values()
+                   if isinstance(a.region, frozenset)}
+        for line, (base, steps) in carved.items():
+            more = tuple(r for r in sorted(regions, key=str) if r != base
+                         and any(_multiple(r, base, s) for s in steps))
+            if more:
+                out[line] = dataclasses.replace(out[line],
+                                                region=(base,) + more)
         return out
+
+    def operands(self, ins: Instr):
+        """The regions a ``wgmma.mma_async`` reads: its A descriptor's
+        (unless A is in registers) and its B descriptor's; None when one
+        is unreadable."""
+        descs = ins.args[2:3] if ins.args[1].startswith("{") else \
+            ins.args[1:3]
+        return _union([self.desc_region(x) for x in descs])
+
+    def _carve(self, carved, ins: Instr, a: Access, addr_arg) -> None:
+        """Note an access whose address adds a varying multiple of a
+        run-time offset (module docstring)."""
+        if not isinstance(a.region, frozenset) or addr_arg is None:
+            return
+        steps = self.steps(self.address(addr_arg) or {})
+        if steps:
+            carved[ins.line] = (a.region, steps)
 
 
 # -------------------------------------------------------------- build ----

@@ -229,6 +229,6 @@ def target(name: str):
     return targets.KernelTarget(
         name=f"mutation:{name}", source=SOURCE, kernel=m.kernel,
         template=(targets.CPP_TYPES["uint8"],) * 2, role=m.role, threads=t,
-        dynamic_smem=smem,
+        max_threads=kernel.MAX_THREADS, dynamic_smem=smem,
         smem_claim=f"as {m.copy_of}", spec=DEFAULT,
         launch=functools.partial(launch, name))

@@ -33,11 +33,19 @@ order them:
   ``mbarrier.arrive`` (the consumer's release, which the producer waits
   on before it refills the stage). With neither, it is a WAR ERROR.
 * an async read (a bulk store out of shared memory) is ordered before a
-  later write of its region only by ``cp.async.bulk.wait_group``.
+  later write of its region only by ``cp.async.bulk.wait_group``; a
+  ``wgmma.mma_async``'s read of its operands (``build.py``: the regions
+  its descriptors point into) only by ``wgmma.wait_group 0``.
 
 Generic stores followed by an async write or read of the region need a CTA
-barrier as any other pair does. The generic-to-async proxy fence that such
-a pair also needs (``fence.proxy.async``) is not checked.
+barrier as any other pair does. They also need the generic-to-async proxy
+fence: a generic store (or atomic) to a shared region followed, on some
+path, by an async-proxy read of that region (a bulk store out of shared
+memory, or a ``wgmma.mma_async`` whose descriptor points into it) with no
+``fence.proxy.async`` on shared memory between them is a PROXY ERROR. A CTA
+barrier does not stand in for the fence: the writer fences its own writes
+(``fence.proxy.async``, then the barrier, then the bulk store or the
+product).
 """
 from __future__ import annotations
 
@@ -61,6 +69,8 @@ WARP_ORDERED: Dict[str, str] = {
 _Pending = Tuple[int, str, object, bool, bool]
 #: pending asynchronous copy: (line, "st" write / "ld" read, region, tag)
 _Async = Tuple[int, str, object, object]
+#: generic store not yet fenced for the async proxy: (line, region)
+_Unfenced = Tuple[int, object]
 
 
 def _conflicts(a_kind: str, b_kind: str) -> str:
@@ -107,9 +117,10 @@ def _after_generic(p: _Pending, a) -> str:
     return "WAW"
 
 
-def _sync(entry, ins, cur: Set[_Pending], asy: Set[_Async]):
-    """``(cur, asy)`` after an mbarrier or copy-group event, or None when
-    ``ins`` is none."""
+def _sync(entry, ins, cur: Set[_Pending], asy: Set[_Async],
+          unf: Set[_Unfenced]):
+    """``(cur, asy, unf)`` after an mbarrier, copy-group, wgmma-group or
+    proxy-fence event, or None when ``ins`` is none."""
     ev = entry.sync_event(ins)
     if ev is None:
         return None
@@ -128,22 +139,26 @@ def _sync(entry, ins, cur: Set[_Pending], asy: Set[_Async]):
         asy = asy - done
         cur = cur | {(ln, "st", rg, False, False) for ln, _, rg, _ in done}
     elif name == "bulk_wait":
-        asy = {x for x in asy if x[1] != "ld"}
-    return cur, asy
+        asy = {x for x in asy if x[1] != "ld" or x[3] == "wgmma"}
+    elif name == "wgmma_wait":
+        asy = {x for x in asy if x[3] != "wgmma"}
+    elif name == "proxy_fence":
+        unf = set()
+    return cur, asy, unf
 
 
 def hazards(entry) -> List[Tuple[int, int, str, bool]]:
-    """``(first line, second line, "RAW"/"WAR"/"WAW", warp-ordered)`` for
-    every pair of same-region shared accesses that some path joins without
-    what orders them (module docstring)."""
+    """``(first line, second line, "RAW"/"WAR"/"WAW"/"PROXY",
+    warp-ordered)`` for every pair of same-region shared accesses that some
+    path joins without what orders them (module docstring)."""
     acc = entry.accesses()
     n = len(entry.blocks)
     preds: List[List[int]] = [[] for _ in range(n)]
     for k, b in enumerate(entry.blocks):
         for s in b.succs:
             preds[s].append(k)
-    out_sets: List[Tuple[Set[_Pending], Set[_Async]]] = [
-        (set(), set()) for _ in range(n)]
+    out_sets: List[Tuple[Set[_Pending], Set[_Async], Set[_Unfenced]]] = [
+        (set(), set(), set()) for _ in range(n)]
     found: Set[Tuple[int, int, str, bool]] = set()
     changed = True
     while changed:
@@ -151,9 +166,11 @@ def hazards(entry) -> List[Tuple[int, int, str, bool]]:
         for k, b in enumerate(entry.blocks):
             cur: Set[_Pending] = set()
             asy: Set[_Async] = set()
+            unf: Set[_Unfenced] = set()
             for p in preds[k]:
                 cur |= out_sets[p][0]
                 asy |= out_sets[p][1]
+                unf |= out_sets[p][2]
             for ins in b.instrs:
                 bar = entry.barrier(ins)
                 if bar == "cta":
@@ -163,9 +180,9 @@ def hazards(entry) -> List[Tuple[int, int, str, bool]]:
                     cur = {(ln, kd, rg, True, rel)
                            for ln, kd, rg, _, rel in cur}
                     continue
-                synced = _sync(entry, ins, cur, asy)
+                synced = _sync(entry, ins, cur, asy, unf)
                 if synced is not None:
-                    cur, asy = synced
+                    cur, asy, unf = synced
                     continue
                 a = acc.get(ins.line)
                 if a is None:
@@ -178,12 +195,18 @@ def hazards(entry) -> List[Tuple[int, int, str, bool]]:
                     kind = _after_async(x, a)
                     if kind and _same(x[2], a.region):
                         found.add((x[0], ins.line, kind, False))
+                if a.proxy == "async" and a.kind == "ld":
+                    for line, region in unf:
+                        if _same(region, a.region):
+                            found.add((line, ins.line, "PROXY", False))
                 if a.proxy == "generic":
                     cur = cur | {(ins.line, a.kind, a.region, False, False)}
+                    if a.kind in ("st", "rmw"):
+                        unf = unf | {(ins.line, a.region)}
                 else:
                     asy = asy | {(ins.line, a.kind, a.region, a.tag)}
-            if (cur, asy) != out_sets[k]:
-                out_sets[k] = (cur, asy)
+            if (cur, asy, unf) != out_sets[k]:
+                out_sets[k] = (cur, asy, unf)
                 changed = True
     return sorted(found)
 
@@ -207,10 +230,14 @@ class SmemBarrier(KernelRule):
             first, second = pairs[0]
             order = ("only a __syncwarp (bar.warp.sync) orders them"
                      if warp else "no barrier lies between them")
+            second_kind = acc[second].kind
+            if kind == "PROXY":
+                order = "no fence.proxy.async lies between them"
+                second_kind = "async-proxy read"
             findings.append(self.finding(
                 Severity.ERROR, artifact.name,
                 f"{kind}: {len(pairs)} path(s) run from a shared "
-                f"{acc[first].kind} to a shared {acc[second].kind} of the "
+                f"{acc[first].kind} to a shared {second_kind} of the "
                 f"same region and {order}; the first from PTX line {first} "
                 f"(`{acc[first].instr.text}`) to line {second} "
                 f"(`{acc[second].instr.text}`)",

@@ -4,9 +4,11 @@ trace had to hold a fixed number of ``pallas_call``s; here the wrappers'
 launch counters are read around one run on the card).
 
 ``skipper_match`` on the canonical schedule launches exactly one
-window-tier and one global-tier kernel; ``flash_attention`` one flash
-kernel; the serving decode step none (the models' attention is the plain
-chunked form, as in the JAX package). A refactor that drops a kernel from
+window-tier and one global-tier kernel; ``flash_attention``, called in
+bf16 and in f32, the bf16 tensor-core kernel once and the three-term TF32
+kernel and its pre-pass once each, and the CUDA-core kernel never; the
+serving decode step none (the models' attention is the plain chunked
+form, as in the JAX package). A refactor that drops a kernel from
 its path, or adds launches, fails here rather than passing unseen.
 """
 from __future__ import annotations

@@ -15,8 +15,19 @@ the hardware cannot keep in its fast storage).
   entry function put per-thread data in local memory (device memory
   behind L1): an ERROR. A register array indexed at run time is the usual
   cause.
-* ``registers`` — INFO: registers a thread and the occupancy they, the
-  block size and the shared memory allow (``roofline/h100.occupancy``).
+* ``registers`` — the counterpart of the reference's ``vmem-budget``
+  ERROR for the register file. ERROR when ptxas's registers a thread (the
+  launch-time count, allocated in units of 256 a warp), times the largest
+  block the kernel's wrapper admits (``KernelTarget.max_threads``), exceed
+  the SM's 65,536: such a launch is refused. For a kernel that moves
+  registers between its warpgroups with ``setmaxnreg`` (the target's
+  ``setmaxnreg``: each value and the warpgroups that set it), ERROR when
+  the values in its PTX are not the target's, when its warpgroups are not
+  the block's, and when the values times their threads sum above 65,536
+  or above what the launch holds (``setmaxnreg.inc`` only takes what the
+  block's other warpgroups gave back). Otherwise INFO: registers a thread
+  and the occupancy they, the block size and the shared memory allow
+  (``roofline/h100.occupancy``).
 """
 from __future__ import annotations
 
@@ -133,17 +144,67 @@ class LocalMemory(KernelRule):
                              "no stack frame, no spills", data=data)]
 
 
+def setmaxnreg_values(entry) -> List[int]:
+    """The register counts an entry's ``setmaxnreg`` instructions set,
+    in PTX order, without repeats."""
+    out: List[int] = []
+    for b in entry.blocks:
+        for ins in b.instrs:
+            if ins.op.startswith("setmaxnreg") and ins.args:
+                n = int(ins.args[0])
+                if n not in out:
+                    out.append(n)
+    return out
+
+
 class Registers(KernelRule):
     name = "registers"
 
     def check_kernel(self, artifact) -> List[Finding]:
         f, t = artifact.facts, artifact.target
+        most = t.max_threads or t.threads
+        held = h100.block_registers(f.registers, most)
+        data = {"registers": f.registers, "barriers": f.barriers,
+                "threads": t.threads, "max_threads": most,
+                "block_registers": held, "limit": h100.REGISTERS_PER_SM}
+        out: List[Finding] = []
+        if held > h100.REGISTERS_PER_SM:
+            out.append(self.finding(
+                Severity.ERROR, t.name,
+                f"{f.registers} registers a thread at the {most} threads "
+                f"a block its wrapper admits take {held} registers, above "
+                f"the SM's {h100.REGISTERS_PER_SM}: that launch is refused",
+                data=data))
+        found = setmaxnreg_values(artifact.ptx)
+        stated = dict(t.setmaxnreg)
+        if found or stated:
+            shares = sum(r * 128 * n for r, n in stated.items())
+            data.update(setmaxnreg=stated, setmaxnreg_in_ptx=found,
+                        setmaxnreg_registers=shares)
+            if sorted(found) != sorted(stated):
+                out.append(self.finding(
+                    Severity.ERROR, t.name,
+                    f"setmaxnreg sets {found} in the PTX; the target "
+                    f"states {sorted(stated)}", data=data))
+            elif 128 * sum(stated.values()) != most:
+                out.append(self.finding(
+                    Severity.ERROR, t.name,
+                    f"the setmaxnreg warpgroups {stated} are not the "
+                    f"block's {most // 128}", data=data))
+            elif shares > min(h100.REGISTERS_PER_SM, held):
+                out.append(self.finding(
+                    Severity.ERROR, t.name,
+                    f"setmaxnreg shares {stated} take {shares} registers, "
+                    f"above the SM's {h100.REGISTERS_PER_SM} or the "
+                    f"{held} the launch holds", data=data))
         occ = h100.occupancy(f.registers, t.threads, block_smem(artifact))
-        return [self.finding(
+        data.update(occ)
+        out.append(self.finding(
             Severity.INFO, artifact.name,
-            f"{f.registers} registers a thread, {f.barriers} barrier(s); at "
-            f"{t.threads} threads a block an SM holds "
+            f"{f.registers} registers a thread, {f.barriers} barrier(s); "
+            f"{held} of {h100.REGISTERS_PER_SM} at the largest block "
+            f"({most} threads); at {t.threads} threads a block an SM holds "
             f"{occ['blocks_per_sm']} block(s), occupancy "
             f"{occ['occupancy']:.2f} (limited by {occ['limited_by']})",
-            data={"registers": f.registers, "barriers": f.barriers,
-                  "threads": t.threads, **occ})]
+            data=data))
+        return out

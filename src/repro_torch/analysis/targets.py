@@ -9,12 +9,15 @@ reference's canonical geometry (``targets.py:27-31``: tile 256, window
   and its device-memory instance) under each (state width, counter width)
   pair (the window tier's ring depth is a launch argument, so the shape
   rule adds no instance), the CUDA-core flash
-  attention under each (dtype, head dim) the source builds, and the
-  tensor-core flash attention under each head dim. Each carries the dynamic shared
-  memory its launch wrapper requests at ``scale`` times the canonical
-  vertex count, at the same window and tile — what ``smem-budget`` holds
-  independent of V — and, for the matcher's tiers, a launcher that
-  ``tier-order`` runs against the plain version.
+  attention under each (dtype, head dim) the source builds, the bf16
+  tensor-core flash attention under each head dim, and the three-term TF32
+  flash attention and its pre-pass under each (head dim, dtype) they take.
+  Each carries the dynamic shared memory its launch wrapper requests at
+  ``scale`` times the canonical vertex count, at the same window and tile
+  — what ``smem-budget`` holds independent of V —, the largest block its
+  wrapper admits and its ``setmaxnreg`` shares (``registers``), and, for
+  the matcher's tiers, a launcher that ``tier-order`` runs against the
+  plain version.
 * Entry targets (:class:`EntryTarget`) run an entry point once on the card
   and report how many times each kernel launched (``kernel-census``).
 """
@@ -48,11 +51,15 @@ CPP_TYPES = {"uint8": "unsigned char", "int32": "int",
 class KernelTarget:
     """One template instance of a kernel.
 
-    ``role`` is "window", "boundary" or "flash". ``dynamic_smem(scale)``
-    is the shared memory its wrapper requests at ``scale``x the canonical
-    vertex count (same window and tile). ``launch`` runs it on CUDA
-    tensors with the signature of ``kernel.window_tier`` (role "window")
-    or ``kernel.boundary_tier`` (role "boundary"), minus ``spec``.
+    ``role`` is "window", "boundary" or "flash". ``threads`` is the
+    block the analysis launches, ``max_threads`` the largest block its
+    wrapper admits, and ``setmaxnreg`` the ``(registers, warpgroups)``
+    pairs of a kernel whose warpgroups set their registers.
+    ``dynamic_smem(scale)`` is the shared memory its wrapper requests at
+    ``scale``x the canonical vertex count (same window and tile).
+    ``launch`` runs it on CUDA tensors with the signature of
+    ``kernel.window_tier`` (role "window") or ``kernel.boundary_tier``
+    (role "boundary"), minus ``spec``.
     """
 
     name: str
@@ -65,6 +72,8 @@ class KernelTarget:
     smem_claim: str = ""
     spec: Optional[StateSpec] = None
     launch: Optional[Callable] = None
+    max_threads: int = 0
+    setmaxnreg: Tuple[Tuple[int, int], ...] = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,6 +139,7 @@ def _matcher_targets() -> List[KernelTarget]:
                 name=f"window_async[{vmem},{counter}]",
                 source=kernel.SOURCE, kernel=kernel.WINDOW_ASYNC,
                 template=tmpl, role="window", threads=TILE,
+                max_threads=kernel.MAX_THREADS,
                 dynamic_smem=window_async_smem,
                 smem_claim="O(window * sizeof(S) + stages * 8 * "
                            "stage_tiles * tile), independent of V: one "
@@ -140,6 +150,7 @@ def _matcher_targets() -> List[KernelTarget]:
                 name=f"window_tier[{vmem},{counter}]",
                 source=kernel.SOURCE, kernel=kernel.WINDOW_TIER,
                 template=tmpl, role="window", threads=TILE,
+                max_threads=kernel.MAX_THREADS,
                 dynamic_smem=window_smem,
                 smem_claim="O(window * sizeof(S) + 9 * tile), independent "
                            "of V: one row's state and one tile's ids",
@@ -150,6 +161,7 @@ def _matcher_targets() -> List[KernelTarget]:
                 name=f"boundary[{vmem},{counter}]",
                 source=kernel.SOURCE, kernel=kernel.BOUNDARY,
                 template=tmpl, role="boundary", threads=TILE,
+                max_threads=kernel.MAX_THREADS,
                 dynamic_smem=boundary_smem,
                 smem_claim="O(9 * tile), independent of V: state stays in "
                            "device memory",
@@ -162,6 +174,7 @@ def _matcher_targets() -> List[KernelTarget]:
                     name=f"boundary_async[{vmem},{counter},{instance}]",
                     source=kernel.SOURCE, kernel=kernel.BOUNDARY_ASYNC,
                     template=tmpl + (flag,), role="boundary", threads=TILE,
+                    max_threads=kernel.BOUNDARY_ASYNC_MAX_THREADS,
                     dynamic_smem=functools.partial(async_smem,
                                                    staged=staged),
                     smem_claim=(
@@ -191,6 +204,7 @@ def _flash_targets() -> List[KernelTarget]:
                 kernel=flash.FLASH, template=(CPP_TYPES[dtype], str(d)),
                 role="flash", threads=FLASH_SHAPE["block"]
                 * flash.LANES_PER_ROW,
+                max_threads=flash.MAX_BLOCK_Q * flash.LANES_PER_ROW,
                 dynamic_smem=smem,
                 smem_claim="O(block_k * D + block_q * block_k), independent "
                            "of S: one k and one v chunk and its scores"))
@@ -198,10 +212,32 @@ def _flash_targets() -> List[KernelTarget]:
         out.append(KernelTarget(
             name=f"flash_wgmma[bfloat16,{d}]", source=flash.WGMMA_SOURCE,
             kernel=flash.FLASH_WGMMA, template=(str(d),), role="flash",
-            threads=3 * 128,
+            threads=3 * 128, max_threads=3 * 128,
+            setmaxnreg=((flash.WGMMA_PRODUCER_REGS, 1),
+                        (flash.WGMMA_CONSUMER_REGS, 2)),
             dynamic_smem=lambda scale, d=d: flash.wgmma_smem_bytes(d),
             smem_claim="O(128 * D + 2 * stages * BK * D), independent of "
                        "S: the Q tile and the ring of K and V chunks"))
+    for d, dtype in flash.TF32_INSTANCES:
+        consumers = flash.TF32_GEOMETRY[d][0]
+        threads = 128 * (1 + consumers)
+        out.append(KernelTarget(
+            name=f"flash_tf32x3[{dtype},{d}]", source=flash.TF32_SOURCE,
+            kernel=flash.FLASH_TF32, template=(str(d), CPP_TYPES[dtype]),
+            role="flash", threads=threads, max_threads=threads,
+            setmaxnreg=flash.tf32_setmaxnreg(d),
+            dynamic_smem=lambda scale, d=d: flash.tf32_smem_bytes(d),
+            smem_claim="O(2 * rows * Dp + 4 * stages * BK * (Dp + D)) "
+                       "floats, independent of S: the Q planes and the ring "
+                       "of K and V^T planes"))
+        out.append(KernelTarget(
+            name=f"flash_split_tf32[{dtype},{d}]", source=flash.TF32_SOURCE,
+            kernel=flash.FLASH_SPLIT, template=(CPP_TYPES[dtype], str(d)),
+            role="flash", threads=flash.SPLIT_THREADS,
+            max_threads=flash.SPLIT_THREADS,
+            dynamic_smem=lambda scale: 0,
+            smem_claim="static: one 32-key tile of V, hi and lo, for its "
+                       "transpose"))
     return out
 
 
@@ -243,6 +279,9 @@ def _run_flash_attention(device: torch.device) -> Dict[str, int]:
                      device=device, dtype=torch.bfloat16)
     _reset()
     flash_attention(q, kv, kv, causal=True, device=device)
+    # f32 at the same shape: the three-term kernel after its pre-pass
+    flash_attention(q.float(), kv.float(), kv.float(), causal=True,
+                    device=device)
     torch.cuda.synchronize(device)  # host-sync: ok — counts after the run
     return _counts()
 
@@ -273,13 +312,16 @@ def _entry_targets() -> List[EntryTarget]:
         EntryTarget("skipper_match", _run_skipper_match,
                     {kernel.WINDOW_ASYNC: 1, kernel.WINDOW_TIER: 0,
                      kernel.BOUNDARY_ASYNC: 1, kernel.BOUNDARY: 0,
-                     flash.FLASH: 0, flash.FLASH_WGMMA: 0}),
+                     flash.FLASH: 0, flash.FLASH_WGMMA: 0,
+                     flash.FLASH_TF32: 0, flash.FLASH_SPLIT: 0}),
         EntryTarget("flash_attention", _run_flash_attention,
-                    {flash.FLASH_WGMMA: 1, flash.FLASH: 0,
+                    {flash.FLASH_WGMMA: 1, flash.FLASH_TF32: 1,
+                     flash.FLASH_SPLIT: 1, flash.FLASH: 0,
                      kernel.WINDOW_ASYNC: 0, kernel.WINDOW_TIER: 0,
                      kernel.BOUNDARY: 0, kernel.BOUNDARY_ASYNC: 0}),
         EntryTarget("serve_decode_step", _run_serve_decode_step,
-                    {flash.FLASH: 0, flash.FLASH_WGMMA: 0}),
+                    {flash.FLASH: 0, flash.FLASH_WGMMA: 0,
+                     flash.FLASH_TF32: 0, flash.FLASH_SPLIT: 0}),
     ]
 
 

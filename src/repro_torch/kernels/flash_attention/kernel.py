@@ -1,20 +1,26 @@
 """Build, load and launch the hand-written flash attention CUDA kernels.
 
-Two sources, each with a plain C interface, built and loaded through
+Three sources, each with a plain C interface, built and loaded through
 ``kernels/_build.py`` (nvcc for ``sm_90a`` into ``build/repro_torch/``,
 ``ctypes``):
 
 * ``csrc/flash_attention_wgmma.cu`` — ``flash_attention_wgmma_kernel``:
   bf16 with head dim 64 or 128, on the tensor cores (wgmma), fed by TMA.
+* ``csrc/flash_attention_tf32.cu`` — ``flash_attention_tf32x3_kernel``:
+  f32 at head dim 64, 80 and 128 and bf16 at head dim 80, on the TF32
+  tensor cores in three terms (``a_hi b_hi + a_hi b_lo + a_lo b_hi``),
+  after its pre-pass ``flash_split_tf32_kernel`` splits Q * scale, K and V
+  into TF32 hi and lo planes (rows padded to :func:`ref.padded_dim`, V
+  transposed).
 * ``csrc/flash_attention.cu`` — ``flash_attention_kernel``: f32 FMA on the
-  CUDA cores, for f32 inputs (TF32 cannot hold f32's 2e-5) and for head
-  dim 80 (its 160-byte rows fit no 128-byte swizzle atom).
+  CUDA cores, the first kernel; no entry point reaches it, and
+  :func:`flash_attention_cuda_cores` keeps it callable as the yardstick.
 
 :func:`flash_attention_cuda` picks one by dtype and head dim
 (:func:`kernel_for`) and launches it on the current stream for CUDA
 tensors. It checks device, dtype, shape, contiguity, the block geometry and
 the shared-memory size, raises on a launch error, and adds one to the
-launched kernel's count.
+launched kernel's count (the pre-pass has a count of its own).
 """
 from __future__ import annotations
 
@@ -26,9 +32,11 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import MAX_SMEM_BYTES
+from repro_torch.kernels.flash_attention import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 WGMMA_SOURCE = SOURCE.with_name("flash_attention_wgmma.cu")
+TF32_SOURCE = SOURCE.with_name("flash_attention_tf32.cu")
 
 HEAD_DIMS = (64, 80, 128)
 #: lanes that share one query row (``kLanesPerRow`` in the source)
@@ -37,6 +45,8 @@ MAX_BLOCK_Q = 128
 
 FLASH = "flash_attention_kernel"
 FLASH_WGMMA = "flash_attention_wgmma_kernel"
+FLASH_TF32 = "flash_attention_tf32x3_kernel"
+FLASH_SPLIT = "flash_split_tf32_kernel"
 #: head dims of the tensor-core kernel (bf16 only)
 WGMMA_HEAD_DIMS = (64, 128)
 #: query rows of one tensor-core block (two consumer warpgroups), keys of
@@ -49,7 +59,24 @@ WGMMA_STAGES = 3
 #: step from the plain version where a row's terms cancel
 P_TERMS = 3
 
-_LAUNCHES: Dict[str, int] = {FLASH: 0, FLASH_WGMMA: 0}
+#: the tensor-core kernel's setmaxnreg shares (``kProducerRegs``,
+#: ``kConsumerRegs``)
+WGMMA_PRODUCER_REGS = 40
+WGMMA_CONSUMER_REGS = 232
+#: the three-term kernel's geometry by head dim (``Geometry<D>`` in its
+#: source): consumer warpgroups of 64 query rows, keys a chunk, chunks in
+#: its ring, and the producer's and consumers' setmaxnreg shares (0: none)
+TF32_GEOMETRY = {64: (2, 64, 2, 40, 232), 80: (2, 32, 2, 40, 232),
+                 128: (1, 32, 2, 0, 0)}
+#: the (head dim, dtype) instances of the three-term kernel and its
+#: pre-pass (bf16 at 64 and 128 runs on the bf16 tensor-core kernel)
+TF32_INSTANCES = ((64, "float32"), (80, "float32"), (128, "float32"),
+                  (80, "bfloat16"))
+#: threads of one pre-pass block
+SPLIT_THREADS = 256
+
+_LAUNCHES: Dict[str, int] = {FLASH: 0, FLASH_WGMMA: 0, FLASH_TF32: 0,
+                             FLASH_SPLIT: 0}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -66,12 +93,12 @@ def reset_launch_counts() -> None:
 
 
 def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel that runs ``dtype`` at ``head_dim``: the tensor-core
-    kernel for bf16 at head dim 64 or 128, the CUDA-core kernel
-    otherwise."""
+    """The kernel that runs ``dtype`` at ``head_dim``: the bf16
+    tensor-core kernel for bf16 at head dim 64 or 128, the three-term TF32
+    kernel otherwise (f32 at every head dim, bf16 at 80)."""
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return FLASH_WGMMA
-    return FLASH
+    return FLASH_TF32
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -112,6 +139,43 @@ def wgmma_smem_bytes(head_dim: int) -> int:
             + 8 * (1 + 2 * WGMMA_STAGES) + 1024)
 
 
+def _declare_tf32(lib: ctypes.CDLL) -> None:
+    lib.flash_attention_tf32_split.argtypes = ([_VP] * 9 + [_I] * 6
+                                               + [ctypes.c_float, _VP])
+    lib.flash_attention_tf32_split.restype = _I
+    lib.flash_attention_tf32x3.argtypes = [_VP] * 7 + [_I] * 8 + [_VP]
+    lib.flash_attention_tf32x3.restype = _I
+    lib.flash_attention_tf32_smem_bytes.argtypes = [_I]
+    lib.flash_attention_tf32_smem_bytes.restype = _I
+    lib.flash_attention_tf32_error_string.argtypes = [_I]
+    lib.flash_attention_tf32_error_string.restype = ctypes.c_char_p
+
+
+def _tf32_library() -> ctypes.CDLL:
+    return _build.load(TF32_SOURCE, _declare_tf32)
+
+
+def tf32_smem_bytes(head_dim: int) -> int:
+    """Dynamic shared memory of one three-term block (``Layout`` in its
+    source): the Q_hi and Q_lo planes of ``64 * consumers`` rows, then
+    ``stages`` stages of the K_hi, K_lo (``BK`` rows of ``Dp`` floats) and
+    V^T_hi, V^T_lo (``D`` rows of ``BK`` floats) planes, the mbarriers (one
+    for Q, a full and an empty one a stage) and 1024 bytes to align the
+    swizzle atoms."""
+    consumers, bk, stages = TF32_GEOMETRY[head_dim][:3]
+    dp = ref.padded_dim(head_dim)
+    q_plane = 4 * dp * 64 * consumers
+    stage = 4 * 2 * bk * (dp + head_dim)
+    return 2 * q_plane + stages * stage + 8 * (1 + 2 * stages) + 1024
+
+
+def tf32_setmaxnreg(head_dim: int):
+    """``(registers, warpgroups)`` the three-term kernel's warpgroups set
+    with setmaxnreg at ``head_dim`` (empty where it sets none)."""
+    consumers, _, _, producer, consumer = TF32_GEOMETRY[head_dim]
+    return ((producer, 1), (consumer, consumers)) if producer else ()
+
+
 def smem_bytes(head_dim: int, block_q: int, block_k: int) -> int:
     """Dynamic shared memory of one block: a k chunk and a v chunk in f32,
     each row split into four quarters of ``D / 4`` floats plus one pad
@@ -149,18 +213,113 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kernel_for(q.dtype, q.shape[-1]) == FLASH_WGMMA:
         return _launch_wgmma(q, k, v, causal=causal, window=window,
                              sm_scale=sm_scale)
-    return flash_attention_cuda_cores(q, k, v, causal=causal, window=window,
-                                      sm_scale=sm_scale, block_q=block_q,
-                                      block_k=block_k)
+    return _launch_tf32(q, k, v, causal=causal, window=window,
+                        sm_scale=sm_scale)
+
+
+def split_tf32_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    sm_scale: float) -> Dict[str, torch.Tensor]:
+    """The three-term kernel's pre-pass, ``flash_split_tf32_kernel``: the
+    planes :func:`ref.tf32_planes` describes, as new CUDA tensors (for
+    bf16 input ``k_lo`` and ``v_lo`` are None). f32 at head dim 64, 80 or
+    128, bf16 at 80; the sequence a multiple of 8."""
+    _check(q, k, v)
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    _require((d, str(q.dtype)[6:]) in TF32_INSTANCES,
+             f"the three-term kernel takes f32 at head dim 64, 80 or 128 "
+             f"and bf16 at 80, got {q.dtype} at {d}")
+    _require(s % 8 == 0, f"the three-term kernel needs the sequence a "
+             f"multiple of 8 (V^T keys in groups of 8), got {s}")
+    dp = ref.padded_dim(d)
+    lo = q.dtype == torch.float32
+    f32 = dict(dtype=torch.float32, device=q.device)
+    planes = {
+        "q_hi": torch.empty((b * hq, s, dp), **f32),
+        "q_lo": torch.empty((b * hq, s, dp), **f32),
+        "k_hi": torch.empty((b * hkv, s, dp), **f32),
+        "k_lo": torch.empty((b * hkv, s, dp), **f32) if lo else None,
+        "v_hi": torch.empty((b * hkv, d, s), **f32),
+        "v_lo": torch.empty((b * hkv, d, s), **f32) if lo else None,
+    }
+    if q.numel() == 0:
+        return planes
+    lib = _tf32_library()
+    ptr = {n: (0 if x is None else x.data_ptr()) for n, x in planes.items()}
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_attention_tf32_split(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr["q_hi"], ptr["q_lo"],
+        ptr["k_hi"], ptr["k_lo"], ptr["v_hi"], ptr["v_lo"], int(not lo), b,
+        hq, hkv, s, d, float(sm_scale), stream)
+    if err != 0:
+        msg = lib.flash_attention_tf32_error_string(err).decode()
+        raise RuntimeError(f"{FLASH_SPLIT} launch failed: CUDA error {err} "
+                           f"({msg})")
+    _LAUNCHES[FLASH_SPLIT] += 1
+    return planes
+
+
+def _launch_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool, window: int, sm_scale: float) -> torch.Tensor:
+    planes = split_tf32_cuda(q, k, v, sm_scale)
+    return tf32x3_on_planes(planes, torch.empty_like(q), k.shape[1],
+                            causal=causal, window=window)
+
+
+def tf32x3_on_planes(planes: Dict[str, torch.Tensor], out: torch.Tensor,
+                     hkv: int, *, causal: bool, window: int) -> torch.Tensor:
+    """``flash_attention_tf32x3_kernel`` on the pre-pass's ``planes``
+    (:func:`split_tf32_cuda`), into ``out`` ``[B, Hq, S, D]`` of the input
+    dtype; returns ``out``. The entry point runs it right after the
+    pre-pass; alone it times the main kernel without the pre-pass."""
+    b, hq, s, d = out.shape
+    _require(out.is_contiguous() and (d, str(out.dtype)[6:]) in
+             TF32_INSTANCES, f"the three-term kernel writes a contiguous "
+             f"f32 output at head dim 64, 80 or 128 or bf16 at 80, got "
+             f"{out.dtype} at {d}")
+    dp, lo = ref.padded_dim(d), out.dtype == torch.float32
+    rows, cols = (s, dp), (d, s)
+    for name, heads, shape, needed in (
+            ("q_hi", hq, rows, True), ("q_lo", hq, rows, True),
+            ("k_hi", hkv, rows, True), ("k_lo", hkv, rows, lo),
+            ("v_hi", hkv, cols, True), ("v_lo", hkv, cols, lo)):
+        x = planes[name]
+        _require(x is not None or not needed, f"plane {name} is missing")
+        _require(x is None or (
+            x.shape == (b * heads,) + shape and x.dtype == torch.float32
+            and x.is_contiguous() and x.device == out.device),
+            f"plane {name} is not a contiguous f32 {(b * heads,) + shape} "
+            "tensor on the output's device")
+    smem = tf32_smem_bytes(d)
+    _require(smem <= MAX_SMEM_BYTES,
+             f"{FLASH_TF32} needs {smem} B of shared memory per block "
+             f"(D={d}); a block has {MAX_SMEM_BYTES} B")
+    if out.numel() == 0:
+        return out
+    lib = _tf32_library()
+    _require(lib.flash_attention_tf32_smem_bytes(d) == smem,
+             "the wrapper's shared-memory size disagrees with the source's")
+    ptr = {n: (0 if x is None else x.data_ptr()) for n, x in planes.items()}
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    err = lib.flash_attention_tf32x3(
+        ptr["q_hi"], ptr["q_lo"], ptr["k_hi"], ptr["k_lo"], ptr["v_hi"],
+        ptr["v_lo"], out.data_ptr(), int(out.dtype != torch.float32), b, hq,
+        hkv, s, d, int(causal), int(window), stream)
+    if err != 0:
+        msg = lib.flash_attention_tf32_error_string(err).decode()
+        raise RuntimeError(f"{FLASH_TF32} launch failed: CUDA error {err} "
+                           f"({msg})")
+    _LAUNCHES[FLASH_TF32] += 1
+    return out
 
 
 def flash_attention_cuda_cores(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, *, causal: bool, window: int,
                                sm_scale: float, block_q: int,
                                block_k: int) -> torch.Tensor:
-    """``flash_attention_kernel`` whatever the dtype: the kernel of f32 and
-    of D = 80, and, for bf16 at D = 64 or 128, the yardstick the
-    tensor-core kernel replaced."""
+    """``flash_attention_kernel`` whatever the dtype: the first kernel,
+    which no entry point reaches any more; kept callable as the yardstick
+    of the kernels that replaced it."""
     _check(q, k, v)
     b, hq, s, d = q.shape
     _require(block_q % 8 == 0 and block_q <= MAX_BLOCK_Q,

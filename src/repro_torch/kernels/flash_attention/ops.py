@@ -5,11 +5,11 @@
 ``[B, Hq, S, D]`` and k/v ``[B, Hkv, S, D]``, and returns ``[B, Hq, S, D]``
 in q's dtype. It runs on the card unless the caller asks for the CPU
 (``device="cpu"``), as the port's other entry points do. On the card it
-launches a hand-written kernel (``kernel.flash_attention_cuda``: the
-tensor-core kernel for bf16 at head dim 64 or 128, the CUDA-core kernel
-otherwise) or raises; on the CPU it runs the plain online-softmax version
-(``ref.online_softmax_attention``). Nothing falls back from one to the
-other.
+launches a hand-written kernel (``kernel.flash_attention_cuda``: the bf16
+tensor-core kernel for bf16 at head dim 64 or 128, the three-term TF32
+kernel after its pre-pass otherwise) or raises; on the CPU it runs the
+plain online-softmax version (``ref.online_softmax_attention``). Nothing
+falls back from one to the other.
 """
 from __future__ import annotations
 

@@ -11,7 +11,10 @@
   start of a row gives ``p = exp(0) = 1`` until a real score wipes it
   through ``alpha``), the online-softmax recurrence in f32, and the division
   by ``l_safe``. The CPU path of ``ops.flash_attention`` runs it, and the
-  card's comparisons hold the CUDA kernel against it.
+  card's comparisons hold the CUDA kernels against it.
+* :func:`split_tf32` — ``x = hi + lo`` with ``hi`` and ``lo`` rounded to
+  TF32 as ``cvt.rna.tf32.f32`` rounds, bit for bit; :func:`tf32_planes` —
+  the planes the three-term kernel's pre-pass writes from q, k and v.
 
 Layout is the reference's: q ``[B, Hq, S, D]``, k/v ``[B, Hkv, S, D]``; query
 head ``h`` reads kv head ``h // (Hq // Hkv)``.
@@ -23,6 +26,8 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+#: the f32 bits a TF32 value leaves zero, and half of their unit
+TF32_DROPPED_BITS = 13
 
 
 def ref_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -104,3 +109,66 @@ def online_softmax_attention(q: torch.Tensor, k: torch.Tensor,
         l_safe = torch.where(l_i > 0, l_i, 1.0)
         out[:, :, rows] = (acc / l_safe[..., None]).to(q.dtype)
     return out
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds: to the
+    nearest value with 10 stored mantissa bits, ties away from zero (add
+    half a unit to the magnitude's bits, clear the 13 low ones)."""
+    bits = x.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    half = 1 << (TF32_DROPPED_BITS - 1)
+    low = (1 << TF32_DROPPED_BITS) - 1
+    out = ((bits + half) & ~low) & 0xFFFFFFFF
+    out = torch.where(out >= 1 << 31, out - (1 << 32), out)
+    return out.to(torch.int32).view(torch.float32).reshape(x.shape)
+
+
+def split_tf32(x: torch.Tensor):
+    """``(hi, lo)``: ``hi = tf32(x)``, ``lo = tf32(x - hi)`` (f32 ``x``;
+    the subtraction is exact). ``hi + lo`` is within ``2^-22 |x|`` of
+    ``x``."""
+    x = x.float()
+    hi = round_tf32(x)
+    return hi, round_tf32(x - hi)
+
+
+def padded_dim(d: int) -> int:
+    """The head dim padded to whole 32-float (128-byte) columns."""
+    return -(-d // 32) * 32
+
+
+def vt_key_order(s: int) -> torch.Tensor:
+    """Stored position -> key of a V^T row of ``s`` keys (``s`` a multiple
+    of 8): each group of 8 holds keys 0 2 4 6 1 3 5 7, the order in which a
+    TF32 wgmma A fragment meets the accumulator's keys."""
+    p = torch.arange(s)
+    return (p & ~7) + 2 * (p & 3) + ((p >> 2) & 1)
+
+
+def tf32_planes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                sm_scale: float) -> dict:
+    """What the three-term kernel's pre-pass writes: ``q_hi``, ``q_lo``
+    (``f32(q) * sm_scale`` split) and ``k_hi``, ``k_lo`` as ``[B*H, S,
+    Dp]`` rows zero-padded to :func:`padded_dim`; ``v_hi``, ``v_lo`` as
+    ``[B*Hkv, D, S]``, transposed, keys in :func:`vt_key_order`. For bf16
+    inputs ``k_lo`` and ``v_lo`` are None (zero: bf16 is exact in TF32)."""
+    b, hq, s, d = q.shape
+    hkv, dp = k.shape[1], padded_dim(d)
+
+    def rows(x, heads):
+        out = torch.zeros((b * heads, s, dp), dtype=torch.float32,
+                          device=x.device)
+        out[..., :d] = x.reshape(b * heads, s, d)
+        return out
+
+    planes = {}
+    planes["q_hi"], planes["q_lo"] = (rows(t, hq) for t in split_tf32(
+        q.float() * sm_scale))
+    k_hi, k_lo = split_tf32(k)
+    vt = v.float().reshape(b * hkv, s, d)[:, vt_key_order(s).to(v.device)]
+    v_hi, v_lo = (t.transpose(1, 2).contiguous() for t in split_tf32(vt))
+    planes["k_hi"], planes["v_hi"] = rows(k_hi, hkv), v_hi
+    lo = q.dtype == torch.float32
+    planes["k_lo"] = rows(k_lo, hkv) if lo else None
+    planes["v_lo"] = v_lo if lo else None
+    return planes

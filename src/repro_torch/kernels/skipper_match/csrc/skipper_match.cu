@@ -238,6 +238,12 @@ constexpr int kRing = 4;
 constexpr int kProfileFields = 8;
 // the largest tile (threads a block) the kernels take
 constexpr int kMaxTile = 1024;
+// the largest tile skipper_boundary_async_kernel takes: its 64-67
+// registers a thread (72 allocated) fit a block of 896 lanes, not 1,024.
+// The analyzer's registers rule holds it to that; a __launch_bounds__
+// forcing fewer registers slowed its tile body by about 90 cycles
+// (PERF.md, PR 16). kernel.py sends wider tiles to skipper_boundary_kernel.
+constexpr int kMaxAsyncBoundaryTile = 896;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -907,6 +913,7 @@ int launch_boundary_async(const int* blk_u, const int* blk_v, const int* u,
                           void* stream) {
   if (size_t(smem_bytes) < boundary_async_smem<S>(window, tile_size, staged))
     return int(cudaErrorInvalidValue);
+  if (tile_size > kMaxAsyncBoundaryTile) return int(cudaErrorInvalidValue);
   if (staged && (size_t(window) * sizeof(S)) % 16 != 0)
     return int(cudaErrorInvalidValue);  // bulk copies move 16-byte units
   auto kernel = staged ? skipper_boundary_async_kernel<S, C, true>

@@ -49,6 +49,10 @@ from repro_torch.kernels._build import MAX_SMEM_BYTES
 SOURCE = Path(__file__).resolve().parent / "csrc" / "skipper_match.cu"
 
 MAX_THREADS = 1024
+#: the largest tile ``skipper_boundary_async_kernel`` takes
+#: (``kMaxAsyncBoundaryTile``: the block's registers); wider tiles take
+#: ``skipper_boundary_kernel``
+BOUNDARY_ASYNC_MAX_THREADS = 896
 
 WINDOW_TIER = "skipper_window_tier_kernel"
 WINDOW_ASYNC = "skipper_window_async_kernel"
@@ -471,7 +475,11 @@ def boundary_tier(
     On CUDA tensors it launches ``skipper_boundary_async_kernel``, in the
     instance :func:`boundary_instance` picks for the shape; ``instance``
     (``"staged"`` or ``"device"``) names one instead, and a staged instance
-    the shape does not fit raises. ``profile``, an int64 CUDA tensor of
+    the shape does not fit raises. A tile wider than
+    :data:`BOUNDARY_ASYNC_MAX_THREADS` lanes takes
+    ``skipper_boundary_kernel`` (:func:`boundary_tier_sync`), and then
+    ``instance`` and ``profile`` must be None. ``profile``, an int64 CUDA
+    tensor of
     ``len(PROFILE_FIELDS)`` elements, receives the tile loop's cycle
     spans on thread 0 (see :data:`PROFILE_FIELDS`); it costs a few clock
     reads a tile.
@@ -490,6 +498,15 @@ def boundary_tier(
                                  fallback=fallback, spec=spec)
     _require(state_rows.device.type == "cuda",
              "tensors must be on CPU or CUDA")
+    if tile_size > BOUNDARY_ASYNC_MAX_THREADS:
+        _require(instance is None and profile is None,
+                 f"the asynchronous global tier takes tiles of at most "
+                 f"{BOUNDARY_ASYNC_MAX_THREADS} lanes; tile {tile_size} "
+                 "takes skipper_boundary_kernel, which has no instance "
+                 "and no profile")
+        return boundary_tier_sync(state_rows, blk_u, blk_v, u_tiles,
+                                  v_tiles, vector_rounds=vector_rounds,
+                                  fallback=fallback, spec=spec)
     fit = boundary_instance(window, tile_size, spec)
     instance = instance or fit
     _require(instance == "device" or fit == "staged",

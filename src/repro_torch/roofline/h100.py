@@ -18,9 +18,19 @@ BF16_FLOPS_PER_S = 989e12
 #: float32 rate of the CUDA cores (outside the tensor cores), FLOP/s: the
 #: "FP32 67 teraFLOPS" of NVIDIA's H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12
-#: the peak rate and the element size of each attention dtype
-FLASH_RATES = {"bfloat16": (BF16_FLOPS_PER_S, 2),
-               "float32": (F32_FLOPS_PER_S, 4)}
+#: dense TF32 tensor-core rate, FLOP/s: the data sheet's "TF32 Tensor Core
+#: 989 teraFLOPS" is with sparsity, half of it dense
+TF32_FLOPS_PER_S = 494.7e12
+#: TF32 products the three-term split issues for each product of the
+#: function (a_hi b_hi + a_hi b_lo + a_lo b_hi)
+TF32_TERMS = 3
+#: the peak rate, the element size and the bound's name of each attention
+#: dtype: bf16 on the tensor cores; f32 on the tensor cores in three TF32
+#: terms (the least time for f32 at 2e-5 there: one TF32 product cannot
+#: hold it)
+FLASH_RATES = {"bfloat16": (BF16_FLOPS_PER_S, 2, "operations"),
+               "float32": (TF32_FLOPS_PER_S / TF32_TERMS, 4,
+                           "operations, 3xTF32")}
 #: 32-bit registers of one SM, and the allocation unit of a warp's
 #: registers
 REGISTERS_PER_SM = 65_536
@@ -59,15 +69,29 @@ def boundary_bytes(s, spec) -> int:
 
 def flash_bound_ms(b, hq, hkv, s, d, dtype: str) -> Tuple[float, str]:
     """The larger of the causal flops (2*B*Hq*S^2*D: both products over half
-    the square) at ``dtype``'s peak rate (``"bfloat16"``: the tensor cores;
-    ``"float32"``: the CUDA cores) and the bytes of q, k, v and o at the
-    memory rate."""
-    rate, itemsize = FLASH_RATES[dtype]
+    the square) at ``dtype``'s rate (``"bfloat16"``: the bf16 tensor cores;
+    ``"float32"``: three TF32 products each, ``"operations, 3xTF32"``) and
+    the bytes of q, k, v and o at the memory rate."""
+    rate, itemsize, name = FLASH_RATES[dtype]
     flops = 2 * b * hq * s * s * d
     nbytes = itemsize * (2 * b * hq * s * d + 2 * b * hkv * s * d)
     t_ops = flops / rate * 1e3
     t_bytes = bytes_ms(nbytes)
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return (t_ops, name) if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def flash_cuda_core_bound_ms(b, hq, s, d) -> float:
+    """The f32 causal flops at the CUDA cores' rate: the bound of the
+    first f32 kernel, which ran there (kept beside the 3xTF32 bound)."""
+    return 2 * b * hq * s * s * d / F32_FLOPS_PER_S * 1e3
+
+
+def block_registers(registers: int, threads: int) -> int:
+    """Registers a block of ``threads`` takes at ``registers`` a thread:
+    each warp's allocation rounded up to the allocation unit."""
+    warps = -(-threads // 32)
+    return (-(-registers * 32 // REGISTER_ALLOC_UNIT) * REGISTER_ALLOC_UNIT
+            * warps)
 
 
 def occupancy(registers: int, threads: int, smem_bytes: int) -> Dict:
@@ -75,10 +99,9 @@ def occupancy(registers: int, threads: int, smem_bytes: int) -> Dict:
     ``registers`` a thread, ``threads`` a block and ``smem_bytes`` of
     shared memory a block, and which limit binds."""
     warps = -(-threads // 32)
-    regs_per_warp = (-(-registers * 32 // REGISTER_ALLOC_UNIT)
-                     * REGISTER_ALLOC_UNIT)
     limits = {
-        "registers": REGISTERS_PER_SM // max(regs_per_warp * warps, 1),
+        "registers": REGISTERS_PER_SM // max(
+            block_registers(registers, threads), 1),
         "warps": MAX_WARPS_PER_SM // warps,
         "blocks": MAX_BLOCKS_PER_SM,
         "shared_memory": SMEM_PER_SM // (smem_bytes

@@ -12,7 +12,10 @@ reference runs on the CPU, and its CUDA-side parsers and rules on text:
    read text in the form nvcc prints (taken from a build of the port's
    sources); the PTX happens-before analysis flags RAW and WAR pairs
    without a barrier, through loop back-edges, and accepts ``bar.sync``
-   and ``bar.red``.
+   and ``bar.red``; it flags a generic store read by the async proxy (a
+   bulk store, a ``wgmma``) with no ``fence.proxy.async`` between; it tells
+   apart regions carved from one aligned dynamic buffer at run-time
+   offsets; and ``registers`` is an ERROR over the register file.
 3. **Canaries stay faithful.** Each CUDA mutant's body differs from its
    production kernel's only in its ``// MUTATION:`` line group, and the
    ``tier-order`` fixture has teeth (its two tile orders give different
@@ -45,6 +48,7 @@ from repro.analysis.rules.state_dtype import StateDtype as RefStateDtype
 from repro_torch.analysis import Finding, Report, Severity, analyze_mutation
 from repro_torch.analysis import mutations
 from repro_torch.analysis.build import (
+    PtxasFacts,
     demangle,
     find_entry,
     parse_ptx,
@@ -54,7 +58,7 @@ from repro_torch.analysis.rules.barrier import SmemBarrier, hazards
 from repro_torch.analysis.rules.base import SourceFile
 from repro_torch.analysis.rules.host_sync import HostSync, LruStaticKey
 from repro_torch.analysis.rules.order import fixture, run_plain
-from repro_torch.analysis.rules.resources import largest_window
+from repro_torch.analysis.rules.resources import Registers, largest_window
 from repro_torch.analysis.rules.state_dtype import StateDtype
 from repro_torch.analysis.runner import caught
 from repro_torch.core.statespec import StateSpec
@@ -453,6 +457,223 @@ def test_entry_end_is_found_by_brace_depth():
     assert {k for _, _, k, _ in hazards(entry)} == set()
 
 
+# The generic-to-async proxy fence: a generic store, then a bulk store out
+# of the same region (the async proxy reads it).
+BULK_OUT = ("\tcp.async.bulk.global.shared::cta.bulk_group [%rd1], [%r2], "
+            "256;\n")
+FENCE = "\tfence.proxy.async.shared::cta;\n"
+
+
+@pytest.mark.parametrize("between,kinds", [
+    ("\tbar.sync 0;\n", {"PROXY"}),              # a barrier is no fence
+    (FENCE + "\tbar.sync 0;\n", set()),          # fence, then barrier
+    ("\tfence.proxy.async.global;\n\tbar.sync 0;\n", {"PROXY"}),
+    ("", {"PROXY", "RAW"}),                       # neither
+])
+def test_generic_store_then_bulk_store_needs_the_proxy_fence(between, kinds):
+    entry = _async_entry("\tst.shared.u32 [%r2+4], %r1;\n" + between
+                         + BULK_OUT + "\tret;\n")
+    assert {k for _, _, k, _ in hazards(entry)} == kinds
+    errors = [f for f in SmemBarrier().check_kernel(
+        _artifact(entry, "skipper_boundary_async_kernel"))
+        if f.severity is Severity.ERROR]
+    assert bool(errors) == bool(kinds)
+    if "PROXY" in kinds:
+        assert any("fence.proxy.async" in f.message for f in errors)
+
+
+def test_dropped_fence_is_caught_through_the_loop():
+    """The staged global tier's shape: each tile writes the row with
+    generic stores; a changed row is fenced, then written back by a bulk
+    store. Without the fence, the stores of one tile meet the next tile's
+    bulk store through the back-edge."""
+    def loop(fence):
+        return ("$L__BB0_1:\n" + fence + "\tbar.sync 0;\n" + BULK_OUT
+                + "\tcp.async.bulk.commit_group;\n"
+                "\tcp.async.bulk.wait_group 0;\n"
+                "\tst.shared.u32 [%r2+4], %r1;\n\tbar.sync 0;\n"
+                "\tsetp.lt.s32 %p2, %r5, 9;\n\t@%p2 bra $L__BB0_1;\n"
+                "\tret;\n")
+    assert hazards(_async_entry(loop(FENCE))) == []
+    assert {k for _, _, k, _ in hazards(_async_entry(loop("")))} == {"PROXY"}
+
+
+# Regions carved from one dynamic buffer: the base rounded up to 1024 (as
+# the flash kernels align their swizzle atoms), plane A at the base, plane B
+# and the two mbarriers at run-time offsets (kernel parameters).
+CARVED = ("\tmov.u32 %r2, smem;\n\tadd.s32 %r3, %r2, 1023;\n"
+          "\tand.b32 %r4, %r3, -1024;\n"
+          "\tld.param.u32 %r6, [k_param_0];\n\tadd.s32 %r7, %r4, %r6;\n"
+          "\tld.param.u32 %r8, [k_param_0+4];\n\tadd.s32 %r10, %r4, %r8;\n"
+          "\tld.param.u32 %r9, [k_param_0+8];\n\tadd.s32 %r11, %r4, %r9;\n"
+          "\tld.param.u64 %rd1, [k_param_1];\n")
+FILL_A = ("\tcp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+          "bytes [%r4], [%rd1], 256, [%r10];\n")
+FILL_B = ("\tcp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+          "bytes [%r7], [%rd1], 256, [%r11];\n")
+WAIT_A = "\tmbarrier.try_wait.parity.shared::cta.b64 %p1, [%r10], %r3;\n"
+WAIT_B = "\tmbarrier.try_wait.parity.shared::cta.b64 %p1, [%r11], %r3;\n"
+LOAD_A = "\tld.shared.u32 %r20, [%r4+8];\n"
+LOAD_B = "\tld.shared.u32 %r21, [%r7+8];\n"
+
+
+def _carved(body: str):
+    text = _ptx(ASYNC_REGS + CARVED + body)
+    entry = parse_ptx(text)["k"]
+    lines = {name: n for n, ln in enumerate(text.splitlines(), 1)
+             for name, ins in (("fill_a", FILL_A), ("fill_b", FILL_B),
+                               ("load_a", LOAD_A), ("load_b", LOAD_B))
+             if ln.strip() == ins.strip()}
+    return entry, lines
+
+
+@pytest.mark.parametrize("waits,racing", [
+    (WAIT_B, "a"),              # plane A read with only B's barrier waited
+    (WAIT_A, "b"),
+    (WAIT_A + WAIT_B, None),    # both ordered: no ERROR
+])
+def test_two_regions_carved_from_one_dynamic_buffer(waits, racing):
+    """Each plane carved at a run-time offset from the aligned base is a
+    region of its own, and so is each mbarrier: a race in one plane is
+    caught while the other plane's reads are ordered by their wait, and
+    two correctly ordered planes raise no ERROR."""
+    entry, ln = _carved(FILL_A + FILL_B + waits + LOAD_A + LOAD_B
+                        + "\tret;\n")
+    acc = entry.accesses()
+    regions = {acc[ln[k]].region for k in ("fill_a", "fill_b")}
+    assert None not in regions and len(regions) == 2
+    assert acc[ln["fill_a"]].region == acc[ln["load_a"]].region
+    want = ([] if racing is None else
+            [(ln[f"fill_{racing}"], ln[f"load_{racing}"], "RAW", False)])
+    assert hazards(entry) == want
+    errors = [f for f in SmemBarrier().check_kernel(
+        _artifact(entry, "flash_attention_tf32x3_kernel"))
+        if f.severity is Severity.ERROR]
+    assert bool(errors) == (racing is not None)
+
+
+# a row picked at run time: smem + slot * row_bytes, row_bytes a parameter
+# (row 1 lies at smem + row_bytes); with a row pitch (row_bytes + 4) the
+# product indexes one array and carves nothing
+SLOT = ("\tld.global.u32 %r12, [%rd1];\n\tmul.lo.s32 %r13, %r12, %r6;\n"
+        "\tadd.s32 %r14, %r2, %r13;\n")
+PITCH = ("\tld.global.u32 %r12, [%rd1];\n\tadd.s32 %r15, %r6, 4;\n"
+         "\tmul.lo.s32 %r13, %r12, %r15;\n\tadd.s32 %r14, %r2, %r13;\n")
+ROW1_OUT = ("\tadd.s32 %r7, %r2, %r6;\n"
+            "\tcp.async.bulk.global.shared::cta.bulk_group [%rd1], [%r7], "
+            "256;\n")
+
+
+@pytest.mark.parametrize("index,fence,kinds", [
+    (SLOT, "", {"PROXY"}),
+    (SLOT, FENCE, set()),
+    (PITCH, "", set()),
+])
+def test_a_row_picked_at_run_time_lies_in_every_carved_row(index, fence,
+                                                           kinds):
+    """A generic store through ``smem + slot * row_bytes`` may land in row
+    1 (``smem + row_bytes``), so row 1's bulk store needs the fence after
+    it; a row pitch with a constant added carves no region."""
+    body = ("\tmov.u32 %r2, smem;\n\tld.param.u32 %r6, [k_param_0];\n"
+            "\tld.param.u64 %rd1, [k_param_1];\n" + index
+            + "\tst.shared.u32 [%r14], %r1;\n" + fence + "\tbar.sync 0;\n"
+            + ROW1_OUT + "\tret;\n")
+    entry = parse_ptx(_ptx(ASYNC_REGS + body))["k"]
+    assert {k for _, _, k, _ in hazards(entry)} == kinds
+
+
+def _wgmma_body(store_plane: str, fence: str) -> str:
+    """A store into a plane, then a tf32 wgmma whose A and B descriptors
+    point into planes A (``%r7``) and B (``%r9``) of the aligned buffer."""
+    desc = ""
+    for src, rd in (("%r7", 3), ("%r9", 5)):
+        desc += (f"\tand.b32 %r2{rd}, {src}, 262128;\n"
+                 f"\tshr.u32 %r3{rd}, %r2{rd}, 4;\n"
+                 f"\tcvt.u64.u32 %rd{rd - 1}, %r3{rd};\n"
+                 f"\tor.b64 %rd{rd}, %rd{rd - 1}, 4611686293305360384;\n")
+    return ("\tmov.u32 %r2, smem;\n\tadd.s32 %r3, %r2, 1023;\n"
+            "\tand.b32 %r4, %r3, -1024;\n"
+            "\tld.param.u32 %r6, [k_param_0];\n\tadd.s32 %r7, %r4, %r6;\n"
+            "\tld.param.u32 %r8, [k_param_0+4];\n"
+            "\tadd.s32 %r9, %r4, %r8;\n"
+            "\tld.param.u32 %r10, [k_param_0+8];\n"
+            "\tadd.s32 %r11, %r4, %r10;\n"
+            f"\tst.shared.f32 [{store_plane}], %f1;\n" + fence
+            + "\tbar.sync 0;\n" + desc + "\twgmma.fence.sync.aligned;\n"
+            "\twgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+            "{%f2, %f3, %f4, %f5}, %rd3, %rd5, p, 1, 1;\n"
+            "\twgmma.commit_group.sync.aligned;\n"
+            "\twgmma.wait_group.sync.aligned 0;\n\tret;\n")
+
+
+@pytest.mark.parametrize("plane,fence,kinds", [
+    ("%r7", "", {"PROXY"}),      # A operand written, no fence
+    ("%r9", "", {"PROXY"}),      # B operand written, no fence
+    ("%r7", FENCE, set()),
+    ("%r11", "", set()),         # a third plane: not an operand
+])
+def test_wgmma_operand_written_by_generic_stores_needs_the_fence(
+        plane, fence, kinds):
+    """A wgmma reads its operands through the async proxy: its
+    descriptors, traced back through the and/shr/cvt/or that pack them,
+    point into planes A and B; a generic store into either needs
+    ``fence.proxy.async`` before the product."""
+    entry = parse_ptx(_ptx(ASYNC_REGS + "\t.reg .f32 %f<8>;\n"
+                           + _wgmma_body(plane, fence)))["k"]
+    acc = entry.accesses()
+    wg = [a for a in acc.values() if a.tag == "wgmma"]
+    assert len(wg) == 1 and isinstance(wg[0].region, tuple)
+    assert {k for _, _, k, _ in hazards(entry)} == kinds
+
+
+SETMAXNREG = ("\tsetmaxnreg.dec.sync.aligned.u32 40;\n"
+              "\tsetmaxnreg.inc.sync.aligned.u32 232;\n")
+
+
+def _reg_artifact(registers, max_threads, threads=256, setmaxnreg=(),
+                  body="\tret;\n"):
+    target = types.SimpleNamespace(
+        name="k[test]", threads=threads, max_threads=max_threads,
+        setmaxnreg=setmaxnreg, dynamic_smem=lambda scale: 0)
+    return types.SimpleNamespace(
+        target=target, name="k[test]", ptx=parse_ptx(_ptx(body))["k"],
+        facts=PtxasFacts(registers, 1, 0, 0, 0, 0))
+
+
+@pytest.mark.parametrize("registers,max_threads,body,setmaxnreg,error", [
+    (62, 1024, "", (), None),           # the window tier's build
+    (95, 1024, "", (), "refused"),      # its first build: 97,280 registers
+    (64, 1024, "", (), None),           # 65,536: the limit itself
+    (67, 1024, "", (), "refused"),      # rounded to 72 a thread
+    (127, 512, "", (), None),           # the CUDA-core flash kernel
+    (168, 384, SETMAXNREG, ((40, 1), (232, 2)), None),
+    (168, 384, SETMAXNREG, ((40, 1), (240, 2)), "states"),
+    (168, 384, SETMAXNREG, ((40, 1), (232, 1)), "block's"),
+    (120, 512, SETMAXNREG, ((40, 1), (232, 2)), "block's"),
+    (160, 384, SETMAXNREG, ((40, 1), (232, 2)), "the launch holds"),
+    (168, 384, SETMAXNREG.replace("232", "248"), ((40, 1), (248, 2)),
+     "above the SM"),
+])
+def test_registers_over_the_register_file_are_an_error(
+        registers, max_threads, body, setmaxnreg, error):
+    """``registers`` is an ERROR when the launch-time count at the largest
+    block the wrapper admits exceeds the SM's 65,536 registers, and when a
+    kernel's setmaxnreg shares disagree with its target or exceed the
+    register file or the launch's allocation; else INFO."""
+    art = _reg_artifact(registers, max_threads, setmaxnreg=setmaxnreg,
+                        body=body + "\tret;\n")
+    findings = Registers().check_kernel(art)
+    errors = [f for f in findings if f.severity is Severity.ERROR]
+    if error is None:
+        assert errors == []
+    else:
+        assert len(errors) == 1 and error in errors[0].message
+    info = [f for f in findings if f.severity is Severity.INFO]
+    assert len(info) == 1
+    assert info[0].data["block_registers"] == h100.block_registers(
+        registers, max_threads)
+
+
 # ------------------------------------------------------------------ 3 -----
 
 def _body(text: str, kernel_name: str):
@@ -592,11 +813,47 @@ def test_targets_name_every_async_window_instance():
         assert first.launch.func is kernel.window_tier_sync
     assert sum(getattr(t, "kernel", None) == kernel.WINDOW_ASYNC
                for t in by_name.values()) == 4
-    assert len(by_name) == 31
+    assert len(by_name) == 39
     census = by_name["skipper_match"].expect
     assert census[kernel.WINDOW_ASYNC] == 1
     assert census[kernel.WINDOW_TIER] == 0
     assert by_name["flash_attention"].expect[kernel.WINDOW_ASYNC] == 0
+    # the largest block each matcher instance's wrapper admits, which
+    # registers checks: 1,024 lanes, and 896 for the asynchronous global
+    # tier (wider tiles take the first global tier)
+    for t in by_name.values():
+        if getattr(t, "role", None) in ("window", "boundary"):
+            assert t.max_threads == (
+                kernel.BOUNDARY_ASYNC_MAX_THREADS
+                if t.kernel == kernel.BOUNDARY_ASYNC else kernel.MAX_THREADS)
+
+
+def test_targets_name_the_three_term_kernel_and_its_pre_pass():
+    """The TF32 kernel and its pre-pass are targets at each (head dim,
+    dtype) they take, each with its block, its setmaxnreg shares and its
+    shared memory; the flash entry point's census expects both once and the
+    CUDA-core kernel never."""
+    from repro_torch.analysis import targets
+    from repro_torch.kernels.flash_attention import kernel as flash
+
+    by_name = {t.name: t for t in targets.get_targets()}
+    for d, dtype in flash.TF32_INSTANCES:
+        main = by_name[f"flash_tf32x3[{dtype},{d}]"]
+        assert main.kernel == flash.FLASH_TF32
+        assert main.template == (str(d), targets.CPP_TYPES[dtype])
+        assert main.max_threads == 128 * (1 + flash.TF32_GEOMETRY[d][0])
+        assert main.dynamic_smem(1) == main.dynamic_smem(2) == (
+            flash.tf32_smem_bytes(d))
+        assert sum(n for _, n in main.setmaxnreg) in (0, main.max_threads
+                                                      // 128)
+        split = by_name[f"flash_split_tf32[{dtype},{d}]"]
+        assert split.kernel == flash.FLASH_SPLIT
+        assert split.template == (targets.CPP_TYPES[dtype], str(d))
+    assert by_name["flash_wgmma[bfloat16,64]"].setmaxnreg == ((40, 1),
+                                                              (232, 2))
+    census = by_name["flash_attention"].expect
+    assert census[flash.FLASH_TF32] == census[flash.FLASH_SPLIT] == 1
+    assert census[flash.FLASH] == 0
 
 
 def test_roofline_models():
@@ -608,8 +865,11 @@ def test_roofline_models():
     assert by == "operations"
     assert ms == pytest.approx(2 * 24 * 32768**2 * 64 / 989e12 * 1e3)
     ms, by = h100.flash_bound_ms(1, 24, 8, 32768, 64, "float32")
-    assert by == "operations"
-    assert ms == pytest.approx(2 * 24 * 32768**2 * 64 / 67e12 * 1e3)
+    assert by == "operations, 3xTF32"
+    assert ms == pytest.approx(3 * 2 * 24 * 32768**2 * 64 / 494.7e12 * 1e3)
+    assert ms == pytest.approx(20.003, abs=1e-3)
+    assert h100.flash_cuda_core_bound_ms(1, 24, 32768, 64) == pytest.approx(
+        2 * 24 * 32768**2 * 64 / 67e12 * 1e3)
     s = types.SimpleNamespace(u_tiles=np.zeros((2, 512)), num_rows=2,
                               window=256, num_boundary_padded=1024,
                               num_windows=4, num_boundary_tiles=4)

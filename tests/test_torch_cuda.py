@@ -6,6 +6,8 @@ PyTorch:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -359,6 +361,37 @@ def test_async_global_tier_equals_plain_and_first_kernel(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("spec", SPECS)
+@pytest.mark.parametrize("instance", ["staged", "device", None])
+def test_async_global_tier_launches_the_largest_tile(cuda_device, spec,
+                                                     instance):
+    """The asynchronous global tier launches at its largest tile,
+    ``BOUNDARY_ASYNC_MAX_THREADS`` lanes, in both instances (the block its
+    registers fit, which the analyzer's ``registers`` rule holds); a tile
+    of 1,024 lanes (``instance`` None) takes the first global tier. Each
+    bit for bit against the plain version."""
+    sp = getattr(StateSpec, spec)()
+    tile = (kernel.MAX_THREADS if instance is None
+            else kernel.BOUNDARY_ASYNC_MAX_THREADS)
+    pairs = GLOBAL_TIER_CASES["at_ring"]
+    args = tuple(torch.from_numpy(a).to(cuda_device) for a in
+                 _pairs_input(pairs, tile, 2048, 7))
+    state = torch.zeros((4, 2048), dtype=sp.vmem_dtype, device=cuda_device)
+    rows_a, rows_p = state.clone(), state.clone()
+    kernel.reset_launch_counts()
+    got = kernel.boundary_tier(rows_a, *args, spec=sp, instance=instance)
+    want = ref.ref_boundary_pass(rows_p, *args, spec=sp)
+    torch.cuda.synchronize()
+    _same((rows_a, rows_p), *zip(got, want))
+    first = instance is None
+    assert kernel.launch_counts()[kernel.BOUNDARY] == int(first)
+    assert kernel.launch_counts()[kernel.BOUNDARY_ASYNC] == int(not first)
+    if first:
+        with pytest.raises(ValueError, match="at most 896 lanes"):
+            kernel.boundary_tier(rows_a, *args, spec=sp, instance="device")
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("instance", ["staged", "device"])
 def test_global_tier_profile_leaves_the_result(cuda_device, instance):
     """The optional cycle profile fills its counters (every tile timed,
@@ -402,6 +435,40 @@ def test_global_tier_instance_follows_the_shape(cuda_device):
 # Tolerances as in chip_smoke.py: f32 2e-5 (sums in other orders), bf16
 # 2e-2 (each side rounds one f32 result to bf16).
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+TF32_INSTANCES = [(torch.float32, 64), (torch.float32, 80),
+                  (torch.float32, 128), (torch.bfloat16, 80)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", TF32_INSTANCES)
+@pytest.mark.parametrize("s", [256, 200])
+def test_tf32_pre_pass_equals_split_tf32(cuda_device, dtype, d, s):
+    """The pre-pass's planes are bit-equal to ``ref.tf32_planes`` on the
+    same CUDA inputs: Q * scale and K split by ``ref.split_tf32`` and
+    zero-padded to whole 32-float columns, V split and transposed with
+    its keys in ``ref.vt_key_order``; no K or V lo plane for bf16."""
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.flash_attention import ref as fref
+
+    gen = torch.Generator(device=cuda_device).manual_seed(d + s)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device)
+               .to(dtype) for shape in ((1, 4, s, d), (1, 2, s, d),
+                                        (1, 2, s, d)))
+    flash.reset_launch_counts()
+    got = flash.split_tf32_cuda(q, k, v, d ** -0.5)
+    want = fref.tf32_planes(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    assert flash.launch_counts()[flash.FLASH_SPLIT] == 1
+    assert set(got) == set(want)
+    for name in got:
+        if want[name] is None:
+            assert got[name] is None, name
+            continue
+        assert torch.equal(got[name], want[name]), name
+    # the transposition itself: V^T read back in key order is V's split
+    order = torch.argsort(fref.vt_key_order(s)).to(cuda_device)
+    v_hi, _ = fref.split_tf32(v.reshape(2, s, d))
+    assert torch.equal(got["v_hi"][:, :, order], v_hi.transpose(1, 2))
 
 
 @pytest.mark.cuda
@@ -418,14 +485,20 @@ def test_flash_kernel_equal_plain(cuda_device, dtype, b, hq, hkv, s, d,
     from repro_torch.kernels.flash_attention import (
         flash_attention, online_softmax_attention)
 
+    from repro_torch.kernels.flash_attention import kernel as flash
+
     gen = torch.Generator(device=cuda_device).manual_seed(s + d)
     q, k, v = (torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
                for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+    flash.reset_launch_counts()
     got = flash_attention(q, k, v, causal=causal, window=window, block_q=blk,
                           block_k=blk)
     want = online_softmax_attention(q, k, v, block_q=blk, block_k=blk,
                                     causal=causal, window=window)
     torch.cuda.synchronize()
+    name = flash.kernel_for(dtype, d)
+    assert flash.launch_counts()[name] == 1
+    assert flash.launch_counts()[flash.FLASH] == 0
     assert got.dtype == dtype and got.shape == q.shape
     err = (got.float() - want.float()).abs().max().item()
     assert err <= FLASH_TOL[dtype], err
@@ -442,10 +515,19 @@ def test_flash_launch_count_and_bad_shapes(cuda_device):
     # CPU tensors go to the card unless the CPU is asked for
     flash_attention(q.cpu(), q.cpu(), q.cpu())
     flash_attention(q.cpu(), q.cpu(), q.cpu(), device="cpu")
-    assert flash.launch_counts() == {flash.FLASH: 2, flash.FLASH_WGMMA: 0}
+    # f32: the three-term kernel, its pre-pass counted on its own
+    f32 = {flash.FLASH: 0, flash.FLASH_WGMMA: 0, flash.FLASH_TF32: 2,
+           flash.FLASH_SPLIT: 2}
+    assert flash.launch_counts() == f32
     qb = q.to(torch.bfloat16)
     flash_attention(qb, qb, qb)
-    assert flash.launch_counts() == {flash.FLASH: 2, flash.FLASH_WGMMA: 1}
+    assert flash.launch_counts() == {**f32, flash.FLASH_WGMMA: 1}
+    q80 = torch.randn((1, 2, 128, 80), device=cuda_device,
+                      dtype=torch.bfloat16)
+    flash_attention(q80, q80, q80)
+    both = {**f32, flash.FLASH_WGMMA: 1, flash.FLASH_TF32: 3,
+            flash.FLASH_SPLIT: 3}
+    assert flash.launch_counts() == both
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q[..., :32], q[..., :32], q[..., :32])
     odd = torch.randn((1, 2, 12, 64), device=cuda_device)
@@ -454,7 +536,7 @@ def test_flash_launch_count_and_bad_shapes(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         t = q.transpose(2, 3).contiguous().transpose(2, 3)
         flash_attention(t, q, q)
-    assert flash.launch_counts() == {flash.FLASH: 2, flash.FLASH_WGMMA: 1}
+    assert flash.launch_counts() == both
 
 
 @pytest.mark.cuda
@@ -492,7 +574,40 @@ def test_analyzer_clean_on_built_kernels(cuda_device):
 
     report = run_analysis()
     assert report.clean, report.render()
-    assert len(report.targets_analyzed) == 31
+    assert len(report.targets_analyzed) == 39
+
+
+@pytest.mark.cuda
+def test_analyzer_catches_each_dropped_proxy_fence(cuda_device, tmp_path):
+    """Each of the three ``fence.proxy.async`` of the matcher's source
+    (the staged global tier's row write-back, its final write-back, and the
+    window tier's) guards generic stores that a bulk store then reads:
+    built without it, the kernel it sits in gets a PROXY ERROR from
+    ``smem-barrier``; built with all three, none."""
+    from repro_torch.analysis.build import demangle, parse_ptx
+    from repro_torch.analysis.rules.barrier import hazards
+    from repro_torch.kernels import _build
+
+    lines = kernel.SOURCE.read_text().splitlines()
+    fences = [n for n, ln in enumerate(lines)
+              if "fence.proxy.async.shared::cta" in ln]
+    assert len(fences) == 3
+    copies = []
+    for i, n in enumerate(fences):
+        path = tmp_path / f"skipper_match_nofence{i}.cu"
+        path.write_text("\n".join(lines[:n] + lines[n + 1:]) + "\n")
+        copies.append(path)
+    built = _build.build(kernel.SOURCE, *copies, ptx=True)
+
+    def proxy(path):
+        entries = parse_ptx(Path(built[str(path)]["path"]).read_text())
+        return {demangle(m).name for m, e in entries.items()
+                if any(k == "PROXY" for _, _, k, _ in hazards(e))}
+
+    assert proxy(kernel.SOURCE) == set()
+    assert proxy(copies[0]) == {kernel.BOUNDARY_ASYNC}
+    assert proxy(copies[1]) == {kernel.BOUNDARY_ASYNC}
+    assert proxy(copies[2]) == {kernel.WINDOW_ASYNC}
 
 
 @pytest.mark.cuda

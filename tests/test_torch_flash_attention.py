@@ -5,8 +5,10 @@ interpret mode) and ``ref_attention``, on the same numpy-seeded inputs.
 Tolerances are the JAX package's own (``tests/test_kernels.py``): 2e-5 in
 f32 (the two frameworks sum in other orders), 2e-2 in bf16 against the f32
 oracle (bf16 output rounding), 1e-4 against the model's chunked attention.
-The CUDA kernel is held against the same plain path on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+The CUDA kernels are held against the same plain path on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``); here the three-term TF32
+kernel's arithmetic, emulated with ``ref.split_tf32``, is held against the
+JAX package's kernel at the same 2e-5.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,7 @@ from repro_torch.kernels.flash_attention import (
     online_softmax_attention,
     ref_attention,
 )
+from repro_torch.kernels.flash_attention import ref
 from repro_torch.kernels.flash_attention.ref import kv_range
 from repro_torch.models.layers import gqa_attention_chunked
 
@@ -131,7 +134,7 @@ def test_online_twin_is_the_cpu_path_and_launches_nothing():
     want = online_softmax_attention(tq, tk, tv, block_q=32, block_k=64,
                                     window=32)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert kernel.launch_counts() == {kernel.FLASH: 0, kernel.FLASH_WGMMA: 0}
+    assert not any(kernel.launch_counts().values())
 
 
 @pytest.mark.parametrize("shape,kw,match", [
@@ -176,21 +179,24 @@ def test_entry_point_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
     got = flash_attention(tq, tk, tv, device="cpu")
     want = online_softmax_attention(tq, tk, tv, block_q=64, block_k=64)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert kernel.launch_counts() == {kernel.FLASH: 0, kernel.FLASH_WGMMA: 0}
+    assert not any(kernel.launch_counts().values())
 
 
 @pytest.mark.parametrize("dtype,d,name", [
     (torch.bfloat16, 64, kernel.FLASH_WGMMA),
     (torch.bfloat16, 128, kernel.FLASH_WGMMA),
-    (torch.bfloat16, 80, kernel.FLASH),
-    (torch.float32, 64, kernel.FLASH),
-    (torch.float32, 128, kernel.FLASH),
+    (torch.bfloat16, 80, kernel.FLASH_TF32),
+    (torch.float32, 64, kernel.FLASH_TF32),
+    (torch.float32, 80, kernel.FLASH_TF32),
+    (torch.float32, 128, kernel.FLASH_TF32),
 ])
 def test_kernel_dispatch_by_dtype_and_head_dim(dtype, d, name):
-    """bf16 at head dim 64 or 128 goes to the tensor cores; f32 (TF32
-    cannot hold 2e-5) and D = 80 (no 128-byte swizzle atom for 160-byte
-    rows) stay on the CUDA-core kernel."""
+    """bf16 at head dim 64 or 128 goes to the bf16 tensor-core kernel; f32
+    at every head dim and bf16 at D = 80 (rows padded to 96 floats) go to
+    the three-term TF32 kernel. No dispatch reaches the CUDA-core
+    kernel."""
     assert kernel.kernel_for(dtype, d) == name
+    assert kernel.kernel_for(dtype, d) != kernel.FLASH
 
 
 def test_tensor_core_kernel_shared_memory():
@@ -274,3 +280,174 @@ def test_p_in_three_bf16_terms_keeps_one_bf16_step(block):
 
     assert within(kernel.P_TERMS)
     assert not within(1)
+
+
+# ------------------------------------------------ three TF32 terms ------
+
+def numpy_tf32(x: np.ndarray) -> np.ndarray:
+    """cvt.rna.tf32.f32 in numpy: round the f32 magnitude to 10 stored
+    mantissa bits, ties away from zero."""
+    bits = x.astype(np.float32).view(np.uint32).astype(np.uint64)
+    out = ((bits + 0x1000) & ~np.uint64(0x1FFF)) & np.uint64(0xFFFFFFFF)
+    return out.astype(np.uint32).view(np.float32)
+
+
+def test_split_tf32_is_bit_exact():
+    """``ref.split_tf32`` rounds as cvt.rna.tf32 does, bit for bit against a
+    numpy rounding (ties and a subnormal included): ``hi`` keeps no bit in
+    the low 13, and ``hi + lo`` is within ``2^-22 |x|`` of a normal
+    ``x``."""
+    rng = np.random.default_rng(16)
+    x = np.concatenate([
+        rng.standard_normal(4096).astype(np.float32) * 10.0 ** rng.integers(
+            -6, 6, 4096),
+        # exact ties: the 13 dropped bits are 0x1000
+        (np.arange(1, 257, dtype=np.uint32) << 13 | 0x1000).view(np.float32)
+        * np.float32(1.0),
+        -np.float32([1.0, 0.5, 3.0e-39, 1.5]),
+    ]).astype(np.float32)
+    hi, lo = ref.split_tf32(torch.from_numpy(x))
+    np.testing.assert_array_equal(hi.numpy().view(np.uint32),
+                                  numpy_tf32(x).view(np.uint32))
+    np.testing.assert_array_equal(
+        lo.numpy().view(np.uint32),
+        numpy_tf32(x - numpy_tf32(x)).view(np.uint32))
+    assert not (hi.numpy().view(np.uint32) & 0x1FFF).any()
+    assert not (lo.numpy().view(np.uint32) & 0x1FFF).any()
+    # the relative bound holds for normal numbers (a subnormal has fewer
+    # bits to keep; it is held bit for bit above)
+    normal = np.abs(x) >= np.finfo(np.float32).tiny
+    resid = np.abs(x.astype(np.float64) - hi.numpy().astype(np.float64)
+                   - lo.numpy().astype(np.float64))
+    assert normal.sum() > 4000
+    assert (resid[normal] <= 2.0 ** -22
+            * np.abs(x[normal].astype(np.float64))).all()
+
+
+def tf32x3_arithmetic(q, k, v, *, causal, window, drop=None):
+    """The three-term kernel's arithmetic in plain PyTorch on its own tile
+    (``kernel.TF32_GEOMETRY``): Q * scale, K, V and each chunk's P split by
+    ``ref.split_tf32``; S = Q_hi K_hi^T + Q_hi K_lo^T + Q_lo K_hi^T and PV =
+    P_hi V_hi + P_hi V_lo + P_lo V_hi (products of TF32 values are exact in
+    f32); the mask, the online softmax and ``acc * alpha + pv`` as the
+    plain version. ``drop`` leaves out the ``"hi_lo"`` or the ``"lo_hi"``
+    term of both products."""
+    b, hq, s, d = q.shape
+    consumers, bk = kernel.TF32_GEOMETRY[d][:2]
+    rows = 64 * consumers
+    group = hq // k.shape[1]
+    qh, ql = ref.split_tf32(q.float() * d ** -0.5)
+    kh, kl = (t.repeat_interleave(group, 1) for t in ref.split_tf32(k))
+    vh, vl = (t.repeat_interleave(group, 1) for t in ref.split_tf32(v))
+
+    def prod(eq, ah, al, bh, bl):
+        out = torch.einsum(eq, ah, bh)
+        if drop != "hi_lo":
+            out = out + torch.einsum(eq, ah, bl)
+        if drop != "lo_hi":
+            out = out + torch.einsum(eq, al, bh)
+        return out
+
+    out = torch.empty_like(q)
+    for qi in range(s // rows):
+        r = slice(qi * rows, (qi + 1) * rows)
+        q_pos = torch.arange(qi * rows, (qi + 1) * rows)[:, None]
+        m = torch.full((b, hq, rows), ref.NEG_INF)
+        l = torch.zeros((b, hq, rows))
+        acc = torch.zeros((b, hq, rows, d))
+        for j in kv_range(qi, rows, bk, s, causal, window):
+            c = slice(j * bk, (j + 1) * bk)
+            sc = prod("bhqd,bhkd->bhqk", qh[:, :, r], ql[:, :, r],
+                      kh[:, :, c], kl[:, :, c])
+            kv_pos = torch.arange(j * bk, (j + 1) * bk)[None]
+            mask = torch.ones((rows, bk), dtype=torch.bool)
+            if causal:
+                mask &= kv_pos <= q_pos
+            if window > 0:
+                mask &= kv_pos > q_pos - window
+            sc = torch.where(mask, sc, ref.NEG_INF)
+            m_new = torch.maximum(m, sc.amax(-1))
+            p = torch.exp(sc - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            ph, pl = ref.split_tf32(p)
+            acc = acc * alpha[..., None] + prod(
+                "bhqk,bhkd->bhqd", ph, pl, vh[:, :, c], vl[:, :, c])
+            m = m_new
+        out[:, :, r] = (acc / torch.where(l > 0, l, 1.0)[..., None]).to(
+            q.dtype)
+    return out
+
+
+TF32_CASES = [(True, 0), (False, 0), (True, 64), (False, 48)]
+
+
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("causal,window", TF32_CASES)
+def test_three_tf32_terms_hold_f32_tolerance(d, causal, window):
+    """The three-term arithmetic stays within 2e-5 of the JAX package's
+    kernel (Pallas, interpret mode) and of the port's plain version, on the
+    numpy-seeded randn inputs the other tests use, at every head dim the
+    kernel takes: causal, full and windowed."""
+    (jq, jk, jv), (tq, tk, tv) = both(inputs(d + window, 1, 4, 2, 256, d),
+                                      "float32")
+    got = tf32x3_arithmetic(tq, tk, tv, causal=causal, window=window).numpy()
+    want = np.asarray(jax_flash(jq, jk, jv, causal=causal, window=window,
+                                block_q=64, block_k=64))
+    plain = online_softmax_attention(tq, tk, tv, block_q=64, block_k=64,
+                                     causal=causal, window=window).numpy()
+    assert np.abs(got - want).max() < 2e-5
+    assert np.abs(got - plain).max() < 2e-5
+
+
+@pytest.mark.parametrize("drop", ["hi_lo", "lo_hi"])
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_two_tf32_terms_miss_f32_tolerance(drop, d):
+    """Why three terms: leaving out either cross term of both products
+    (``a_hi b_lo`` or ``a_lo b_hi``) misses 2e-5 on the same inputs."""
+    (jq, jk, jv), (tq, tk, tv) = both(inputs(d, 1, 4, 2, 256, d), "float32")
+    got = tf32x3_arithmetic(tq, tk, tv, causal=True, window=0,
+                            drop=drop).numpy()
+    want = np.asarray(jax_flash(jq, jk, jv, causal=True, block_q=64,
+                                block_k=64))
+    assert np.abs(got - want).max() > 2e-5
+
+
+def test_tf32_planes_layout():
+    """The pre-pass's planes: Q * scale and K split and zero-padded to
+    whole 32-float columns (D = 80 -> 96), V split and transposed with the
+    keys of each group of 8 in the order 0 2 4 6 1 3 5 7; hi + lo gives
+    back the f32 values; bf16 input has no K or V lo plane."""
+    _, (tq, tk, tv) = both(inputs(7, 1, 4, 2, 64, 80), "float32")
+    planes = ref.tf32_planes(tq, tk, tv, 80 ** -0.5)
+    assert planes["q_hi"].shape == (4, 64, 96)
+    assert planes["k_lo"].shape == (2, 64, 96)
+    assert planes["v_hi"].shape == (2, 80, 64)
+    assert not planes["q_hi"][..., 80:].any()
+    assert not planes["k_lo"][..., 80:].any()
+    torch.testing.assert_close(planes["k_hi"][..., :80] + planes["k_lo"][
+        ..., :80], tk.reshape(2, 64, 80), rtol=2.0 ** -22, atol=0)
+    order = ref.vt_key_order(64)
+    assert order[:8].tolist() == [0, 2, 4, 6, 1, 3, 5, 7]
+    v = planes["v_hi"] + planes["v_lo"]
+    torch.testing.assert_close(v[:, :, torch.argsort(order)],
+                               tv.reshape(2, 64, 80).transpose(1, 2),
+                               rtol=2.0 ** -22, atol=0)
+    half = ref.tf32_planes(tq.bfloat16(), tk.bfloat16(), tv.bfloat16(),
+                           80 ** -0.5)
+    assert half["k_lo"] is None and half["v_lo"] is None
+    assert not ref.split_tf32(tk.bfloat16())[1].any()
+
+
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_tf32_kernel_shared_memory(d):
+    """The three-term kernel's block: two Q planes of 64 rows a consumer
+    warpgroup, two stages of K_hi, K_lo (BK x Dp) and V^T_hi, V^T_lo (D x
+    BK), five mbarriers and 1 KB of alignment; independent of S and within
+    one block's shared memory at every head dim."""
+    consumers, bk, stages = kernel.TF32_GEOMETRY[d][:3]
+    dp = ref.padded_dim(d)
+    want = (4 * (2 * 64 * consumers * dp + stages * 2 * bk * (dp + d))
+            + 8 * (1 + 2 * stages) + 1024)
+    assert kernel.tf32_smem_bytes(d) == want <= kernel.MAX_SMEM_BYTES
+    assert {64: 197_672, 80: 189_480, 128: 197_672}[d] == want

@@ -48,11 +48,34 @@ Phases (any failure raises and exits non-zero):
    each held bit for bit against the one plain run of its tier on the
    same inputs, and the result must pass ``check_matching``, the
    state-domain check and the greedy certificate.
-4a. Analysis: the port's kernel conformance analyzer
-   (``repro_torch.analysis``) over ``src/repro_torch`` and every target
+4b. The raw-stream matcher and the baselines, on phase 4's graph:
+   ``skipper()`` (the global-tier kernel over one state row, every tile
+   the pair (0, 0)) on the card bit for bit against its plain version on
+   the CPU at four small streams (n = 257, RMAT 10, a star, a stream of
+   duplicates, self-loops and invalid slots), tiles 32, 256, 512 and 1024
+   (the last through ``skipper_boundary_kernel``), both layouts and both
+   state widths, with conflicts and counters; then once on the RMAT graph
+   as it comes (reorder none, tile 512, edges already on the card, their
+   copy timed apart) with the launch counts reset just before it (the
+   asynchronous global tier must launch once), held by
+   ``check_matching``, the state-domain check and the greedy certificate
+   in dispersed slot order, and timed warm end to end and as the kernel
+   alone, with the Table II summary of its conflicts; ``ems_idmm``,
+   ``ems_israeli_itai`` and ``sidmm`` (batch 4096) timed on the same
+   graph and held valid and maximal (below the EMS round cap), and bit
+   for bit against their CPU runs on RMAT 10 given the same
+   permutations; the Fig. 7 line (accesses per edge) on RMAT scale 16,
+   where the int32 counters cannot wrap, with the raw-stream kernel in
+   both its instances (the main path's device-memory instance among them)
+   held bit for bit against and timed beside its plain version on the
+   card there; the
+   APRAM oracle (``repro_torch.testing.pin_entry_points``) on masks from
+   the card, RMAT scale 7, window 64, tile 32.
+4a. Analysis (after 4b): the port's kernel conformance analyzer
+   (``repro_torch.analysis``) over ``src/repro_torch`` and all 40 targets
    (each template instance of the three production kernels, and the
-   ``skipper_match``, ``flash_attention`` and serving decode-step entry
-   points) must report no ERROR; each mutation canary must be caught by
+   ``skipper_match``, ``skipper``, ``flash_attention`` and serving
+   decode-step entry points) must report no ERROR; each mutation canary must be caught by
    its named rule; the two canaries with plain versions
    (``swapped_writeback``, ``dynamic_gather``) must equal them bit for bit
    on the canonical schedule's global tier, where all three are timed. A
@@ -144,6 +167,8 @@ WINDOW, WINDOW_ASYNC, BOUNDARY, ASYNC = ("skipper_window_tier_kernel",
                                          "skipper_boundary_kernel",
                                          "skipper_boundary_async_kernel")
 MUTANT_SOURCE = "src/repro_torch/analysis/csrc/mutants.cu"
+#: the analyzer's targets: 36 kernel instances and 4 entry points
+ANALYSIS_TARGETS = 40
 
 
 def log(*args) -> None:
@@ -203,11 +228,38 @@ def require(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
+def slot_certificate(su: torch.Tensor, sv: torch.Tensor,
+                     stream: torch.Tensor, mask: torch.Tensor, n: int,
+                     where: str = "certificate") -> None:
+    """Exact O(E) proof that ``mask`` (stream order) equals the sequential
+    greedy matching over a slot order: slot p holds vertex ids ``su[p]``,
+    ``sv[p]`` and stream index ``stream[p]`` (-1: padding). The matching is
+    valid, no edge outside a valid slot is matched, and every valid
+    unmatched slot p has an endpoint whose first matched slot lies before
+    p."""
+    real = (stream >= 0) & (su >= 0) & (su != sv)
+    taken = torch.zeros_like(real)
+    taken[real] = mask[stream[real]]
+    in_slots = torch.zeros_like(mask)
+    in_slots[stream[real]] = True
+    require(not bool(mask[~in_slots].any()),
+            f"{where}: an edge outside the valid slots is matched")
+    ends = torch.cat([su[taken], sv[taken]])
+    require(bool((torch.bincount(ends, minlength=n) <= 1).all()),
+            f"{where}: two matched slots share a vertex")
+    pos = torch.arange(su.numel(), device=su.device)
+    first = torch.full((n,), su.numel(), dtype=torch.long, device=su.device)
+    first = first.scatter_reduce(0, ends, pos[taken].repeat(2), "amin")
+    open_ = real & ~taken
+    earlier = torch.minimum(first[su[open_]], first[sv[open_]])
+    require(bool((earlier < pos[open_]).all()),
+            f"{where}: a valid unmatched slot has no endpoint matched "
+            "earlier in slot order")
+
+
 def greedy_certificate(schedule, mask: torch.Tensor) -> None:
-    """Exact O(E) proof that ``mask`` equals the sequential greedy matching
-    over the schedule's slot order (window rows, then global-tier slots):
-    the matching is valid and every valid unmatched slot p has an endpoint
-    whose first matched slot lies before p."""
+    """:func:`slot_certificate` over the schedule's slot order (window
+    rows, then global-tier slots), in its renumbered vertex ids."""
     s, dev = schedule, mask.device
 
     def put(a):
@@ -221,25 +273,22 @@ def greedy_certificate(schedule, mask: torch.Tensor) -> None:
                     put(s.boundary_v)])
     stream = torch.cat([put(s.edge_index).reshape(-1),
                         put(s.boundary_index)])
-    real = stream >= 0
-    taken = torch.zeros_like(real)
-    taken[real] = mask[stream[real]]
-    in_slots = torch.zeros_like(mask)
-    in_slots[stream[real]] = True
-    require(not bool(mask[~in_slots].any()),
-            "certificate: an edge outside the schedule's slots is matched")
-    n = s.num_windows * s.window
-    ends = torch.cat([su[taken], sv[taken]])
-    require(bool((torch.bincount(ends, minlength=n) <= 1).all()),
-            "certificate: two matched slots share a vertex")
-    pos = torch.arange(su.numel(), device=dev)
-    first = torch.full((n,), su.numel(), dtype=torch.long, device=dev)
-    first = first.scatter_reduce(0, ends, pos[taken].repeat(2), "amin")
-    open_ = real & ~taken
-    earlier = torch.minimum(first[su[open_]], first[sv[open_]])
-    require(bool((earlier < pos[open_]).all()),
-            "certificate: a valid unmatched slot has no endpoint matched "
-            "earlier in slot order")
+    slot_certificate(su, sv, stream, mask, s.num_windows * s.window)
+
+
+def stream_certificate(ut: torch.Tensor, vt: torch.Tensor,
+                       mask: torch.Tensor, n: int) -> None:
+    """:func:`slot_certificate` over a raw stream's tiles in slot order
+    ``t * T + l``, with the dispersed layout's stream index
+    ``l * num_tiles + t``: the raw-stream matcher equals the sequential
+    greedy over its tiles in lane order."""
+    num_tiles, tile = ut.shape
+    t = torch.arange(num_tiles, device=ut.device)[:, None]
+    lane = torch.arange(tile, device=ut.device)[None, :]
+    stream = (lane * num_tiles + t).reshape(-1)
+    stream = torch.where(stream < mask.numel(), stream, -1)
+    slot_certificate(ut.reshape(-1).long(), vt.reshape(-1).long(), stream,
+                     mask, n, "raw-stream certificate")
 
 
 def random_stream(seed, n, m, *, dup=0.0, loops=0.0, invalid=0.0):
@@ -709,7 +758,293 @@ def phase_full(dev, seed: int, scale: int, worst):
     # replacements, and the bodies the analyzer's canaries copy
     for e in entries[2:]:
         e["status"] = "superseded"
-    return entries
+    return entries, edges, match_ms
+
+
+# --------------------------------------------------------------- phase 4b --
+#: the raw-stream matcher's tiles in phase 4b's small cases: the last one
+#: takes skipper_boundary_kernel (over kernel.BOUNDARY_ASYNC_MAX_THREADS)
+RAW_TILES = (32, 256, 512, 1024)
+RAW_TILE = 512
+#: the Fig. 7 line's graph: small enough that no counter wraps in int32
+ACCESS_SCALE = 16
+SIDMM_BATCH = 4096
+INT32_LIMIT = 2**31
+
+
+def raw_cases():
+    """(label, edges) of phase 4b's small raw streams: n = 257 (a row of no
+    whole 16-byte units: the device-memory instance), RMAT scale 10 (n =
+    1024: the staged instance), a star, and a stream with duplicates,
+    self-loops, padding and half-invalid slots (-1, v)."""
+    from repro_torch.graphs import path_graph, rmat_graph, star_graph
+    from repro_torch.interop import edges_from_arrays
+
+    hz = random_stream(21, 300, 1500, dup=0.1, loops=0.1, invalid=0.05)
+    u = hz.u.numpy().copy()
+    u[np.random.default_rng(22).random(u.shape[0]) < 0.03] = -1
+    return [("path257", path_graph(257)),
+            ("rmat10", rmat_graph(10, 8, seed=2)),
+            ("star600", star_graph(600)),
+            ("hazards", edges_from_arrays(u, hz.v.numpy(), 300))]
+
+
+def match_err(got, want) -> int:
+    """max_abs_err of two ``skipper`` results: mask, state, conflicts and
+    the four counters (``want`` may lie on the CPU)."""
+    (r, c), (rp, cp) = got, want
+    pairs = [(r.match_mask, rp.match_mask), (r.state, rp.state)]
+    if c is not None or cp is not None:
+        pairs.append((c, cp))
+    for f in ("edge_reads", "state_loads", "state_stores", "rounds"):
+        pairs.append((getattr(r.counters, f), getattr(rp.counters, f)))
+    return max_err(*((a.cpu(), b.cpu()) for a, b in pairs))
+
+
+def raw_small(dev):
+    """``skipper`` on the card against its plain version on the CPU, bit
+    for bit, at every small case, tile, layout and state width, with
+    conflicts. Returns the worst max_abs_err."""
+    from repro_torch.core import skipper
+    from repro_torch.core.statespec import StateSpec
+
+    worst, t0 = 0, time.perf_counter()
+    for label, g in raw_cases():
+        errs = []
+        for tile in RAW_TILES:
+            for dispersed in (True, False):
+                for spec_name in ("u8", "legacy_i32"):
+                    kw = dict(tile_size=tile, dispersed=dispersed,
+                              with_conflicts=True, vector_rounds=2,
+                              spec=getattr(StateSpec, spec_name)())
+                    err = match_err(skipper(g, device=dev, **kw),
+                                    skipper(g, device="cpu", **kw))
+                    errs.append(err)
+                    require(err == 0, f"raw stream {label} tile {tile} "
+                            f"dispersed={dispersed} {spec_name}: the card "
+                            f"and the plain version disagree ({err})")
+        worst = max(worst, *errs)
+        log(f"  raw {label:>8} n={g.num_vertices} m={g.num_edges}: "
+            f"{len(errs)} cases bit-equal (tiles {RAW_TILES}, both "
+            "layouts, both widths)")
+    log(f"raw-stream small cases: {time.perf_counter() - t0:.1f} s")
+    return worst
+
+
+def accesses_line(dev, seed: int, tile: int, instance: str):
+    """The Fig. 7 analogue: memory accesses per edge of Skipper and the
+    three baselines on RMAT scale ACCESS_SCALE, printed only where no
+    int32 counter can have wrapped (rounds x the most a round adds stays
+    below 2^31). Also the raw-stream kernel in both its instances against
+    its plain version on the card there, bit for bit and timed: the plain
+    time of the kernels line, and the kernel's time there in the main
+    path's ``instance``. Returns ``(plain_ms, kernel_ms, max_abs_err,
+    case)``."""
+    from repro_torch.core import ems_idmm, ems_israeli_itai, sidmm, skipper
+    from repro_torch.core.skipper import stream_tiles, tiles_on_card
+    from repro_torch.graphs import rmat_graph
+    from repro_torch.kernels.skipper_match import kernel, ref
+
+    g = rmat_graph(ACCESS_SCALE, 16, seed=seed).to(dev)
+    n, m = g.num_vertices, g.num_edges
+    ut, vt = stream_tiles(g, tile)
+
+    def plain():
+        st = torch.zeros(n, dtype=torch.uint8, device=dev)
+        return (st, *ref.ref_skipper(st, ut, vt))
+
+    plain_ms, want = cuda_time(plain)
+    err, k_ms = 0, {}
+    for inst in kernel.INSTANCES:
+        k_ms[inst], got = cuda_time(
+            lambda inst=inst: tiles_on_card(ut, vt, n, instance=inst),
+            reps=3)
+        e = max_err(*zip(got, want))
+        require(e == 0, f"raw stream RMAT {ACCESS_SCALE}, {inst} instance: "
+                f"kernel and plain version disagree ({e})")
+        err = max(err, e)
+    log(f"raw stream RMAT {ACCESS_SCALE} ({ut.shape[0]} tiles of {tile}): "
+        f"both instances bit-equal to ref_skipper ({plain_ms:.1f} ms); "
+        f"kernel ms {json.dumps(k_ms)}")
+    # (run, the most one round adds to the counters' total, the most added
+    # once)
+    runs = {
+        "skipper": (lambda: skipper(g, tile_size=tile, device=dev)[0],
+                    6 * m, 0),
+        "ems_idmm": (lambda: ems_idmm(g, device=dev), 11 * m, 0),
+        "ems_israeli_itai": (
+            lambda: ems_israeli_itai(g, seed=seed, device=dev), 13 * m, 0),
+        "sidmm": (lambda: sidmm(g, batch_size=SIDMM_BATCH, seed=seed,
+                                device=dev),
+                  11 * SIDMM_BATCH, 2 * (-(-m // SIDMM_BATCH)) * SIDMM_BATCH),
+    }
+    per_edge = {}
+    for name, (run, per_round, once) in runs.items():
+        r = run()
+        rounds = int(r.counters.rounds)
+        most = once + rounds * per_round
+        per_edge[name] = (int(r.counters.total_accesses) / m
+                          if most < INT32_LIMIT else
+                          f"not printed: up to {most} accesses wrap int32")
+    log("accesses per edge (Fig. 7 analogue): " + json.dumps({
+        "graph": f"RMAT scale {ACCESS_SCALE}, edge factor 16, seed {seed}",
+        "edges": m, "per_edge": per_edge}))
+    case = (f"ref_skipper on the card, RMAT scale {ACCESS_SCALE} "
+            f"({ut.shape[0]} tiles of {tile}), bit-equal to the {instance} "
+            "instance")
+    return plain_ms, k_ms[instance], err, case
+
+
+def phase_raw(dev, edges, seed: int, match_ms: float):
+    """Phase 4b: the raw-stream matcher ``skipper()`` through the global
+    tier kernel, and the paper's baselines, on phase 4's graph; the APRAM
+    oracle on masks from the card. Returns the kernels line's entry."""
+    from repro_torch.core import (
+        check_matching, check_state_domain, conflict_table, ems_idmm,
+        ems_israeli_itai, sidmm, skipper)
+    from repro_torch.core.ems import MAX_ROUNDS
+    from repro_torch.core.skipper import stream_tiles, tiles_on_card
+    from repro_torch.core.statespec import DEFAULT
+    from repro_torch.graphs import rmat_graph
+    from repro_torch.kernels.skipper_match import kernel
+    from repro_torch.roofline import h100
+    from repro_torch.testing import pin_entry_points
+
+    t_phase = time.perf_counter()
+    worst = raw_small(dev)
+
+    # the main path: rmat22 raw, reorder none, device-resident edges
+    copy_ms, g = cuda_time(lambda: edges.to(dev))
+    n, m = g.num_vertices, g.num_edges
+    torch.cuda.reset_peak_memory_stats()
+    kernel.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, conf = skipper(g, tile_size=RAW_TILE, with_conflicts=True,
+                        device=dev)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = kernel.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"raw-stream main path: {first_s:.3f} s (first call), launches "
+        f"{launches}, peak device memory {peak} B")
+    require(launches[ASYNC] == 1 and sum(launches.values()) == 1,
+            f"skipper did not go through {ASYNC} once: {launches}")
+    chk = check_matching(g, res.match_mask)
+    require(bool(chk["valid"]) and bool(chk["maximal"]),
+            f"raw stream: check_matching failed {chk}")
+    require(bool(check_state_domain(res.state)["clean"]),
+            "raw stream: state domain")
+    ut, vt = stream_tiles(g, RAW_TILE)
+    stream_certificate(ut, vt, res.match_mask, n)
+    table = conflict_table(conf.cpu())
+    log(f"raw stream: valid maximal matching of {int(chk['num_matches'])} "
+        "edges, state clean, greedy certificate in dispersed slot order "
+        "holds")
+
+    # warm: end to end, then the kernel alone on the same tiles
+    sk_ms, _ = cuda_time(lambda: skipper(g, tile_size=RAW_TILE, device=dev),
+                         reps=3)
+    num_tiles = ut.shape[0]
+    instance = kernel.boundary_instance(n, RAW_TILE)
+    k_ms, k_out = cuda_time(
+        lambda: tiles_on_card(ut, vt, n, instance=instance), reps=3)
+    want = (res.state, res.match_mask,
+            conf)  # the main path's result, in stream order
+    mask_k = k_out[1].T.reshape(-1)[:m]
+    conf_k = k_out[2].T.reshape(-1)[:m]
+    err = max_err((k_out[0], want[0]), (mask_k, want[1]), (conf_k, want[2]))
+    require(err == 0, "raw stream: the kernel alone and skipper() differ")
+    bound = h100.stream_bytes(num_tiles, RAW_TILE, n, DEFAULT)
+    del k_out, mask_k, conf_k, ut, vt
+
+    # the baselines on the same graph
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3, r
+
+    baselines = {}
+    for name, fn in (
+            ("ems_idmm", lambda: ems_idmm(g, device=dev)),
+            ("ems_israeli_itai",
+             lambda: ems_israeli_itai(g, seed=seed, device=dev)),
+            ("sidmm", lambda: sidmm(g, batch_size=SIDMM_BATCH, seed=seed,
+                                    device=dev))):
+        ms, r = timed(fn)
+        c = check_matching(g, r.match_mask)
+        rounds = int(r.counters.rounds)
+        capped = name != "sidmm" and rounds >= MAX_ROUNDS
+        require(bool(c["valid"]), f"{name}: not a valid matching")
+        require(bool(c["maximal"]) or capped,
+                f"{name}: not maximal below its round cap")
+        baselines[name] = {
+            "ms": ms, "rounds": rounds, "medges_per_s": m / (ms * 1e-3) / 1e6,
+            "matches": int(c["num_matches"]), "maximal": bool(c["maximal"]),
+            "stopped_at_round_cap": capped,
+            "counters_int32": {f: int(getattr(r.counters, f)) for f in
+                               ("edge_reads", "state_loads", "state_stores",
+                                "rounds")}}
+        log(f"baseline {name}: {ms:.1f} ms, {rounds} rounds, "
+            f"{baselines[name]['medges_per_s']:.1f} Medges/s, valid, "
+            f"{'maximal' if c['maximal'] else 'NOT maximal: round cap'}")
+        del r
+
+    # the baselines on the card against their CPU plain runs, given the
+    # same permutations
+    small = rmat_graph(10, 8, seed=2)
+    gen = torch.Generator().manual_seed(seed)
+    pris = [torch.randperm(small.num_edges, generator=gen).to(torch.int32)
+            for _ in range(MAX_ROUNDS)]
+    perm = torch.randperm(-(-small.num_edges // 512) * 512, generator=gen)
+    base_err = 0
+    for run in (lambda d: ems_idmm(small, device=d),
+                lambda d: ems_israeli_itai(small, priorities=pris.__getitem__,
+                                           device=d),
+                lambda d: sidmm(small, batch_size=512, perm=perm, device=d)):
+        a, b = run(dev), run("cpu")
+        base_err = max(base_err, match_err((a, None), (b, None)))
+    require(base_err == 0, "a baseline on the card differs from its plain "
+            "CPU run given the same permutations")
+    log("baselines on the card equal their CPU runs (RMAT 10; IDMM, and "
+        "Israeli-Itai and SIDMM given the same permutations)")
+
+    plain_ms, small_k_ms, err16, plain_case = accesses_line(
+        dev, seed, RAW_TILE, instance)
+    worst = max(worst, err, err16)
+
+    # the APRAM oracle on masks from the card
+    t0 = time.perf_counter()
+    pins = pin_entry_points(rmat_graph(7, 2, seed=3), window=64,
+                            tile_size=32, device=dev)
+    require(len(pins) == 9 and "skipper_match_cuda@u8" in pins,
+            f"pin_entry_points pinned {sorted(pins)}")
+    log(f"APRAM oracle on the card: {len(pins)} entry points pinned as "
+        f"reachable traces ({sorted(pins)}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    metrics = {
+        "graph": f"RMAT scale {edges.num_vertices.bit_length() - 1}, "
+                 "reorder none, raw stream",
+        "vertices": n, "edges": m, "tile": RAW_TILE, "tiles": num_tiles,
+        "instance": instance, "edges_to_card_ms": copy_ms,
+        "skipper_ms": sk_ms, "medges_per_s": m / (sk_ms * 1e-3) / 1e6,
+        "kernel_ms": k_ms, "kernel_us_per_tile": 1e3 * k_ms / num_tiles,
+        "bound_ms": h100.bytes_ms(bound), "peak_device_bytes": peak,
+        "skipper_match_ms_same_graph": match_ms,
+        "matches": int(chk["num_matches"]), "conflict_table": table,
+        "baselines": baselines,
+        "plain_case": plain_case, "plain_ms": plain_ms,
+        "kernel_ms_plain_case": small_k_ms,
+        "phase_s": time.perf_counter() - t_phase}
+    log("raw-stream metrics: " + json.dumps(metrics))
+    return {"name": ASYNC, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[ASYNC], "path": "skipper (raw stream)",
+            "launches": launches[ASYNC], "max_abs_err": worst, "ms": k_ms,
+            "plain_ms": plain_ms, "plain_case": plain_case,
+            "bound_ms": h100.bytes_ms(bound), "bound_by": "bytes",
+            "library_ms": None}
 
 
 # --------------------------------------------------------------- phase 4a --
@@ -736,6 +1071,10 @@ def phase_analysis(dev):
             log("  " + f.render())
     require(report.clean, f"analysis: {len(report.errors)} ERROR finding(s) "
             "on the production tree")
+    require(len(report.targets_analyzed) == ANALYSIS_TARGETS
+            == len(atargets.target_names()),
+            f"analysis: {len(report.targets_analyzed)} targets analyzed, "
+            f"not {ANALYSIS_TARGETS}")
 
     # each kernel's registers, shared memory and stack, from the findings
     facts = {}
@@ -1467,7 +1806,9 @@ def main() -> int:
             "the PTX, not 4")
 
     worst = phase_small(dev)
-    kernels = phase_full(dev, args.seed, args.scale, worst)
+    kernels, edges, match_ms = phase_full(dev, args.seed, args.scale, worst)
+    kernels.append(phase_raw(dev, edges, args.seed, match_ms))
+    del edges
     # after phase 4: the analyzer's serving census leaves cuBLAS's
     # workspace allocated, which phase 4's peak device memory would count
     kernels += phase_analysis(dev)

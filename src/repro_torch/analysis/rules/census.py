@@ -4,7 +4,9 @@ trace had to hold a fixed number of ``pallas_call``s; here the wrappers'
 launch counters are read around one run on the card).
 
 ``skipper_match`` on the canonical schedule launches exactly one
-window-tier and one global-tier kernel; ``flash_attention``, called in
+window-tier and one global-tier kernel; ``skipper`` on the canonical
+graph the asynchronous global tier once and nothing else;
+``flash_attention``, called in
 bf16 and in f32, the bf16 tensor-core kernel once and the three-term TF32
 kernel and its pre-pass once each, and the CUDA-core kernel never; the
 serving decode step none (the models' attention is the plain chunked

@@ -19,7 +19,9 @@ reference's canonical geometry (``targets.py:27-31``: tile 256, window
   the matcher's tiers, a launcher that ``tier-order`` runs against the
   plain version.
 * Entry targets (:class:`EntryTarget`) run an entry point once on the card
-  and report how many times each kernel launched (``kernel-census``).
+  and report how many times each kernel launched (``kernel-census``):
+  ``skipper_match``, the raw-stream ``skipper``, ``flash_attention`` and
+  the serving decode step.
 """
 from __future__ import annotations
 
@@ -268,6 +270,18 @@ def _run_skipper_match(device: torch.device) -> Dict[str, int]:
     return _counts()
 
 
+def _run_skipper(device: torch.device) -> Dict[str, int]:
+    """The raw-stream matcher on the canonical graph: its tiles go through
+    the asynchronous global tier once, as one state row."""
+    from repro_torch.core.skipper import skipper
+
+    edges = canonical_graph(1)
+    _reset()
+    skipper(edges, tile_size=TILE, device=device)
+    torch.cuda.synchronize(device)  # host-sync: ok — counts after the run
+    return _counts()
+
+
 def _run_flash_attention(device: torch.device) -> Dict[str, int]:
     from repro_torch.kernels.flash_attention import flash_attention
 
@@ -312,6 +326,11 @@ def _entry_targets() -> List[EntryTarget]:
         EntryTarget("skipper_match", _run_skipper_match,
                     {kernel.WINDOW_ASYNC: 1, kernel.WINDOW_TIER: 0,
                      kernel.BOUNDARY_ASYNC: 1, kernel.BOUNDARY: 0,
+                     flash.FLASH: 0, flash.FLASH_WGMMA: 0,
+                     flash.FLASH_TF32: 0, flash.FLASH_SPLIT: 0}),
+        EntryTarget("skipper", _run_skipper,
+                    {kernel.BOUNDARY_ASYNC: 1, kernel.BOUNDARY: 0,
+                     kernel.WINDOW_ASYNC: 0, kernel.WINDOW_TIER: 0,
                      flash.FLASH: 0, flash.FLASH_WGMMA: 0,
                      flash.FLASH_TF32: 0, flash.FLASH_SPLIT: 0}),
         EntryTarget("flash_attention", _run_flash_attention,

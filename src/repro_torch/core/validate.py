@@ -53,6 +53,16 @@ def check_matching(edges: EdgeList,
     }
 
 
+def check_matching_arrays(u, v, n: int, mask) -> Dict[str, object]:
+    """:func:`check_matching` of host arrays (``u``, ``v`` ids, ``mask``
+    bools), as Python values: the APRAM model's quiescence check."""
+    e = EdgeList(torch.from_numpy(np.asarray(u, np.int32)),
+                 torch.from_numpy(np.asarray(v, np.int32)), int(n))
+    out = check_matching(e, torch.from_numpy(np.asarray(mask, bool)))
+    # CPU tensors: the values are on the host already
+    return {k: x.item() for k, x in out.items()}  # host-sync: ok — CPU
+
+
 def check_state_domain(state: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Domain check of a final vertex-state array at any width: only ACC(0)
     or MCHD(2) may survive a finished run. Returns ``{"clean",

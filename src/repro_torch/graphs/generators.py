@@ -10,6 +10,7 @@ We cannot ship 224-billion-edge crawls; we reproduce the *structural families*:
                          the adversarial case for the thread-dispersed scheduler.
 * ``ring_graph`` / ``path_graph`` / ``star_graph`` — worst cases for greedy
                          matching and conflict behaviour.
+* ``bipartite_graph``  — random bipartite graph (the MoE router's shape).
 
 All generators are numpy-based (host-side data pipeline work, as loading is in
 the real system) and deterministic given ``seed``. Port of
@@ -104,3 +105,13 @@ def star_graph(num_leaves: int) -> EdgeList:
     v = np.arange(1, num_leaves + 1, dtype=np.int64)
     return _as_edgelist(u, v, num_leaves + 1)
 
+
+def bipartite_graph(
+    left: int, right: int, num_edges: int, seed: int = 0
+) -> EdgeList:
+    """Random bipartite graph; left vertices are [0, left), right vertices
+    are [left, left + right). Used by the MoE matching-router tests."""
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, left, size=num_edges, dtype=np.int64)
+    v = left + rng.integers(0, right, size=num_edges, dtype=np.int64)
+    return _as_edgelist(u, v, left + right)

@@ -13,6 +13,10 @@ the main path calls them when a card is present.
   two names for the one-row and the all-ACC cases of it.
 * :func:`ref_boundary_pass` — plain version of ``skipper_boundary_kernel``:
   ``tile_pass_pair`` looped over the global tier in schedule order.
+* :func:`ref_skipper` — plain version of the raw-stream matcher
+  (``core/skipper.py``), which on the card is the global tier over one
+  state row with every tile the same-block pair (0, 0): ``tile_pass``
+  looped over the tiles on the full state, as the reference's scan does.
 """
 from __future__ import annotations
 
@@ -125,4 +129,29 @@ def ref_boundary_pass(
         )
         matched[k] = mt.to(cdt)
         conflicts[k] = cf
+    return matched, conflicts
+
+
+def ref_skipper(
+    state: torch.Tensor,        # [n], updated in place
+    u_tiles: torch.Tensor,      # int32[num_tiles, T] vertex ids
+    v_tiles: torch.Tensor,
+    *,
+    vector_rounds: int = 1,
+    conflict_method: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The raw edge stream's tiles in order against the full state: tile k
+    sees every earlier tile's commits. Updates ``state`` in place; returns
+    ``(matched bool[num_tiles, T], conflicts int32[num_tiles, T])``, the
+    widths of the reference's scan."""
+    n = state.shape[0]
+    matched = torch.zeros(u_tiles.shape, dtype=torch.bool,
+                          device=u_tiles.device)
+    conflicts = torch.zeros(u_tiles.shape, dtype=torch.int32,
+                            device=u_tiles.device)
+    for k in range(u_tiles.shape[0]):
+        _, matched[k], conflicts[k], _ = engine.tile_pass(
+            state, u_tiles[k], v_tiles[k], n=n, vector_rounds=vector_rounds,
+            conflict_method=conflict_method,
+        )
     return matched, conflicts

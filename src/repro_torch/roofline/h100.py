@@ -67,6 +67,18 @@ def boundary_bytes(s, spec) -> int:
             + 2 * spec.counter_bytes * slots)
 
 
+def stream_bytes(num_tiles: int, tile_size: int, num_vertices: int,
+                 spec) -> int:
+    """Bytes the raw-stream matcher (``core/skipper.py``: the global-tier
+    kernel over one state row) must move: the u/v ids in (8 bytes an edge
+    slot), the state row of ``num_vertices`` cells in and out, matched and
+    conflicts out. The all-zero pair blocks the kernel also reads carry
+    nothing the function needs and are not counted."""
+    slots = num_tiles * tile_size
+    return (8 * slots + 2 * num_vertices * spec.vmem_bytes
+            + 2 * spec.counter_bytes * slots)
+
+
 def flash_bound_ms(b, hq, hkv, s, d, dtype: str) -> Tuple[float, str]:
     """The larger of the causal flops (2*B*Hq*S^2*D: both products over half
     the square) at ``dtype``'s rate (``"bfloat16"``: the bf16 tensor cores;

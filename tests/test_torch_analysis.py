@@ -813,7 +813,7 @@ def test_targets_name_every_async_window_instance():
         assert first.launch.func is kernel.window_tier_sync
     assert sum(getattr(t, "kernel", None) == kernel.WINDOW_ASYNC
                for t in by_name.values()) == 4
-    assert len(by_name) == 39
+    assert len(by_name) == 40  # 36 kernel instances, 4 entry points
     census = by_name["skipper_match"].expect
     assert census[kernel.WINDOW_ASYNC] == 1
     assert census[kernel.WINDOW_TIER] == 0
@@ -876,6 +876,35 @@ def test_roofline_models():
     assert h100.window_bytes(s, StateSpec.u8()) == 8 * 1024 + 2 * 512 + 2048
     assert h100.boundary_bytes(s, StateSpec.legacy_i32()) == (
         32 + 8 * 1024 + 2 * 4096 + 8 * 1024)
+
+
+def test_stream_bytes_model():
+    """The raw-stream matcher's byte bound: 8 bytes of ids an edge slot,
+    the state row in and out, matched and conflicts out, at each width;
+    at rmat22's shape (131,072 tiles of 512, 2^22 vertices, u8) 704 MiB."""
+    assert h100.stream_bytes(3, 32, 100, StateSpec.u8()) == (
+        8 * 96 + 2 * 100 + 2 * 96)
+    assert h100.stream_bytes(3, 32, 100, StateSpec.legacy_i32()) == (
+        8 * 96 + 2 * 400 + 8 * 96)
+    full = h100.stream_bytes(131_072, 512, 1 << 22, StateSpec.u8())
+    assert full == 10 * (1 << 26) + (1 << 23)
+    assert h100.bytes_ms(full) == pytest.approx(full / 3.35e12 * 1e3)
+    assert h100.stream_bytes(0, 512, 0, StateSpec.u8()) == 0
+
+
+def test_skipper_entry_target_expects_one_global_tier_launch():
+    """The analyzer's ``skipper`` entry target: the asynchronous global
+    tier once, every other kernel never; 40 targets in all."""
+    from repro_torch.analysis import targets
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.skipper_match import kernel
+
+    t = targets.get_targets(["skipper"])[0]
+    assert t.expect[kernel.BOUNDARY_ASYNC] == 1
+    others = set(kernel.launch_counts()) | set(flash.launch_counts())
+    assert {k for k, n in t.expect.items() if n == 0} == (
+        others - {kernel.BOUNDARY_ASYNC})
+    assert len(targets.target_names()) == 40
 
 
 @pytest.mark.parametrize("fault", ["nvcc fails", "entry missing"])

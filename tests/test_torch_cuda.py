@@ -554,6 +554,145 @@ def test_bmatch_on_card_equals_cpu(cuda_device):
     assert int(gs["conflicts"]) == int(ws["conflicts"])
 
 
+# ---- the raw-stream matcher and the baselines on the card ------------------
+
+def _raw_stream(case):
+    """The raw-stream cases: n = 257 (a row that is no whole number of
+    16-byte units: the device-memory instance), RMAT scale 10 (n = 1024:
+    the staged instance), a star, and a stream with self-loops, padding,
+    half-invalid slots and duplicates."""
+    from repro_torch.graphs import path_graph
+    from repro_torch.interop import edges_from_arrays
+
+    if case == "path257":
+        return path_graph(257)
+    if case == "rmat10":
+        return rmat_graph(10, 8, seed=2)
+    if case == "star":
+        return star_graph(600)
+    rng = np.random.default_rng(11)
+    n, m = 300, 1500
+    u = rng.integers(0, n, m)
+    v = np.where(rng.random(m) < 0.1, u, rng.integers(0, n, m))
+    pad = rng.random(m) < 0.05
+    u, v = np.where(pad, -1, u), np.where(pad, -1, v)
+    u = np.where(rng.random(m) < 0.03, -1, u)
+    return edges_from_arrays(u, v, n)
+
+
+def _same_match(got, want):
+    (r, c), (rp, cp) = got, want
+    _same((r.match_mask.cpu(), rp.match_mask), (r.state.cpu(), rp.state),
+          (c.cpu(), cp))
+    for f in ("edge_reads", "state_loads", "state_stores", "rounds"):
+        _same((getattr(r.counters, f).cpu(), getattr(rp.counters, f)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", SPECS)
+@pytest.mark.parametrize("dispersed", [True, False])
+@pytest.mark.parametrize("tile", [32, 256, 512, 1024])
+@pytest.mark.parametrize("case", ["path257", "rmat10", "star", "hazards"])
+def test_skipper_on_card_equals_plain(cuda_device, spec, dispersed, tile,
+                                      case):
+    """``skipper`` on the card (the global-tier kernel over one state row)
+    bit for bit against its plain version on the CPU, mask, state,
+    conflicts and counters; one launch a call: the asynchronous global
+    tier, or the first one for tiles over 896 lanes."""
+    from repro_torch.core import skipper
+
+    g = _raw_stream(case)
+    kw = dict(tile_size=tile, dispersed=dispersed, with_conflicts=True,
+              spec=getattr(StateSpec, spec)(), vector_rounds=2)
+    kernel.reset_launch_counts()
+    got = skipper(g, verify=True, device=cuda_device, **kw)
+    torch.cuda.synchronize()
+    launched = (kernel.BOUNDARY if tile > kernel.BOUNDARY_ASYNC_MAX_THREADS
+                else kernel.BOUNDARY_ASYNC)
+    assert kernel.launch_counts() == {
+        kernel.WINDOW_ASYNC: 0, kernel.WINDOW_TIER: 0,
+        kernel.BOUNDARY_ASYNC: int(launched == kernel.BOUNDARY_ASYNC),
+        kernel.BOUNDARY: int(launched == kernel.BOUNDARY)}
+    _same_match(got, skipper(g, device="cpu", **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", SPECS)
+@pytest.mark.parametrize("instance", kernel.INSTANCES)
+@pytest.mark.parametrize("tile", [256, 512])
+def test_raw_stream_instances_equal_plain(cuda_device, spec, instance, tile):
+    """Each instance of the asynchronous global tier, named rather than
+    picked, on the raw stream of RMAT scale 12 (n = 4,096, where both
+    fit): state, mask and conflicts bit for bit against ``ref_skipper`` on
+    the CPU, one launch. ``skipper`` takes the device-memory instance at
+    any n whose row does not fit shared memory, as at RMAT scale 22."""
+    from repro_torch.core.skipper import stream_tiles, tiles_on_card
+
+    g = rmat_graph(12, 8, seed=6)
+    s = getattr(StateSpec, spec)()
+    n = g.num_vertices
+    ut, vt = stream_tiles(g, tile)
+    state = torch.zeros(n, dtype=s.at_rest_dtype)
+    matched, conflicts = ref.ref_skipper(state, ut, vt, vector_rounds=2)
+    kernel.reset_launch_counts()
+    got = tiles_on_card(ut.to(cuda_device), vt.to(cuda_device), n,
+                        vector_rounds=2, spec=s, instance=instance)
+    torch.cuda.synchronize()
+    assert kernel.launch_counts()[kernel.BOUNDARY_ASYNC] == 1
+    _same((got[0].cpu(), state), (got[1].cpu(), matched),
+          (got[2].cpu(), conflicts))
+    assert kernel.boundary_instance(1 << 22, 512) == "device"
+
+
+@pytest.mark.cuda
+def test_skipper_defaults_to_the_card(cuda_device):
+    from repro_torch.core import skipper
+
+    res, conf = skipper(rmat_graph(9, 4, seed=1), tile_size=64)
+    assert res.match_mask.device.type == "cuda" and conf is None
+    assert res.state.device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_baselines_on_card_equal_plain(cuda_device):
+    """IDMM as it is, Israeli–Itai and SIDMM given the same permutations:
+    the card's run equals the CPU's, mask, state and counters."""
+    from repro_torch.core import ems_idmm, ems_israeli_itai, sidmm
+
+    g = rmat_graph(10, 8, seed=2)
+    m = g.num_edges
+    gen = torch.Generator().manual_seed(5)
+    pris = [torch.randperm(m, generator=gen).to(torch.int32)
+            for _ in range(128)]
+    perm = torch.randperm(-(-m // 512) * 512, generator=gen)
+    runs = [lambda d: ems_idmm(g, device=d),
+            lambda d: ems_israeli_itai(g, priorities=pris.__getitem__,
+                                       device=d),
+            lambda d: sidmm(g, batch_size=512, perm=perm, device=d)]
+    for run in runs:
+        got, want = run(cuda_device), run("cpu")
+        assert got.match_mask.device.type == "cuda"
+        _same((got.match_mask.cpu(), want.match_mask),
+              (got.state.cpu(), want.state))
+        for f in ("edge_reads", "state_loads", "state_stores", "rounds"):
+            _same((getattr(got.counters, f).cpu(),
+                   getattr(want.counters, f)))
+        assert_matching(g, got.match_mask)
+
+
+@pytest.mark.cuda
+def test_pin_entry_points_on_card(cuda_device):
+    """The APRAM oracle on masks from the card: skipper, both backends of
+    skipper_match and the b-matching, at both widths, and sgmm."""
+    from repro_torch.testing import pin_entry_points
+
+    out = pin_entry_points(rmat_graph(7, 2, seed=3), window=64,
+                           tile_size=32, device=cuda_device)
+    assert {"skipper_match_cuda@u8", "skipper_match_cuda@legacy_i32",
+            "skipper@u8", "skipper@legacy_i32", "sgmm"} <= set(out)
+    assert len(out) == 9
+
+
 @pytest.mark.cuda
 def test_smoke_serve_on_card(cuda_device):
     from repro_torch.launch.serve import serve
@@ -574,7 +713,7 @@ def test_analyzer_clean_on_built_kernels(cuda_device):
 
     report = run_analysis()
     assert report.clean, report.render()
-    assert len(report.targets_analyzed) == 39
+    assert len(report.targets_analyzed) == 40
 
 
 @pytest.mark.cuda

@@ -116,6 +116,29 @@ def test_match_window_default_device_raises_without_cuda(monkeypatch):
     assert set(kernel.launch_counts().values()) == {0}
 
 
+@pytest.mark.parametrize("entry", ["skipper", "ems_israeli_itai",
+                                   "ems_idmm", "sidmm"])
+def test_raw_stream_and_baselines_default_to_the_card(monkeypatch, entry):
+    """``skipper`` and the three EMS baselines run on the card unless given
+    the CPU: without a card they raise, naming themselves, even for CPU
+    edges; with ``device="cpu"`` they run there and launch nothing."""
+    from repro_torch import core
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fn = getattr(core, entry)
+    g = path_graph(40)
+    with pytest.raises(RuntimeError, match=f"no CUDA device: {entry} runs"):
+        fn(g)
+    with pytest.raises(RuntimeError, match=f"no CUDA device: {entry}"):
+        fn(g, device="cuda")
+    kernel.reset_launch_counts()
+    out = fn(g, device="cpu")
+    res = out[0] if entry == "skipper" else out
+    assert res.match_mask.device.type == "cpu"
+    assert int(res.match_mask.sum()) > 0
+    assert set(kernel.launch_counts().values()) == {0}
+
+
 @pytest.mark.parametrize("default", ["cpu", "cuda"])
 def test_resolve_device_default_and_refusal(monkeypatch, default):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

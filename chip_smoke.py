@@ -70,12 +70,37 @@ Phases (any failure raises and exits non-zero):
    held bit for bit against and timed beside its plain version on the
    card there; the
    APRAM oracle (``repro_torch.testing.pin_entry_points``) on masks from
-   the card, RMAT scale 7, window 64, tile 32.
-4a. Analysis (after 4b): the port's kernel conformance analyzer
-   (``repro_torch.analysis``) over ``src/repro_torch`` and all 40 targets
+   the card, RMAT scale 7, window 64, tile 32, all 13 rows (the
+   distributed and chaos-recovered rows among them).
+4c. The distributed matcher and the fault harness, on phase 4's graph.
+   Small cases first: on two of phase 3's schedules, at both widths
+   (``u8`` one vector round, ``legacy_i32`` two), ``distributed_skipper``
+   (one rank, no process group) on both schedules, clean and under each
+   fault site with ``on_fault="recover"``, and ``skipper_match`` under
+   each site live at one rank, the kernels (``backend="cuda"``) bit for
+   bit against the plain path on the same CUDA tensors (mask, state,
+   counters, conflicts, every stats and report field). Then a one-rank
+   NCCL group (``dist.get_backend() == "nccl"`` is asserted), and at full
+   scale, each run with the launch counts reset just before it and timed
+   with CUDA events and the host clock (rounds, ms a round, ``DistStats``):
+   ``distributed_skipper`` on phase 4's schedule, equal to phase 4's
+   ``skipper_match`` bit for bit (the window tier once and the global
+   tier twice a round must launch); on the raw stream (dispersed), held
+   by ``check_matching``, the state-domain check and the greedy
+   certificate in stream order; ``skipper_match`` under
+   ``FaultPlan(seed=7, drop_proposals=0.25, corrupt_state=0.05)``, whose
+   ``"report"`` must see residual edges and corrupted cells and whose
+   ``"recover"`` must be valid, maximal and clean; and
+   ``distributed_skipper(on_fault="recover")`` with ``lose_shard=0`` and
+   with ``truncate_retry=0``, each valid, maximal and clean. The block of
+   the full-scale runs is ``DIST_BLOCK`` (PERF.md section 4). Each path's
+   first slab pass is timed beside its plain version for the kernels line.
+4a. Analysis (after 4c): the port's kernel conformance analyzer
+   (``repro_torch.analysis``) over ``src/repro_torch`` and all 42 targets
    (each template instance of the three production kernels, and the
-   ``skipper_match``, ``skipper``, ``flash_attention`` and serving
-   decode-step entry points) must report no ERROR; each mutation canary must be caught by
+   ``skipper_match``, ``skipper``, ``flash_attention``, serving
+   decode-step and both distributed entry points) must report no ERROR;
+   each mutation canary must be caught by
    its named rule; the two canaries with plain versions
    (``swapped_writeback``, ``dynamic_gather``) must equal them bit for bit
    on the canonical schedule's global tier, where all three are timed. A
@@ -126,6 +151,7 @@ port's sources are missing.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import re
 import subprocess
@@ -167,8 +193,8 @@ WINDOW, WINDOW_ASYNC, BOUNDARY, ASYNC = ("skipper_window_tier_kernel",
                                          "skipper_boundary_kernel",
                                          "skipper_boundary_async_kernel")
 MUTANT_SOURCE = "src/repro_torch/analysis/csrc/mutants.cu"
-#: the analyzer's targets: 36 kernel instances and 4 entry points
-ANALYSIS_TARGETS = 40
+#: the analyzer's targets: 36 kernel instances and 6 entry points
+ANALYSIS_TARGETS = 42
 
 
 def log(*args) -> None:
@@ -758,7 +784,9 @@ def phase_full(dev, seed: int, scale: int, worst):
     # replacements, and the bodies the analyzer's canaries copy
     for e in entries[2:]:
         e["status"] = "superseded"
-    return entries, edges, match_ms
+    phase4 = {"schedule": s, "result": res, "match_ms": match_ms,
+              "window_entry": dict(entries[0])}
+    return entries, edges, phase4
 
 
 # --------------------------------------------------------------- phase 4b --
@@ -831,6 +859,17 @@ def raw_small(dev):
     return worst
 
 
+def raw_kernel(ut, vt, n: int, instance: str):
+    """The raw-stream kernel alone, as ``skipper()`` runs it:
+    ``tiles_on_card`` on a fresh row at the default widths. Returns
+    ``(state, matched, conflicts int32)``."""
+    from repro_torch.core.skipper import tiles_on_card
+
+    row = torch.zeros(n, dtype=torch.uint8, device=ut.device)
+    matched, conflicts = tiles_on_card(row, ut, vt, instance=instance)
+    return row, matched, conflicts.to(torch.int32)
+
+
 def accesses_line(dev, seed: int, tile: int, instance: str):
     """The Fig. 7 analogue: memory accesses per edge of Skipper and the
     three baselines on RMAT scale ACCESS_SCALE, printed only where no
@@ -841,7 +880,7 @@ def accesses_line(dev, seed: int, tile: int, instance: str):
     path's ``instance``. Returns ``(plain_ms, kernel_ms, max_abs_err,
     case)``."""
     from repro_torch.core import ems_idmm, ems_israeli_itai, sidmm, skipper
-    from repro_torch.core.skipper import stream_tiles, tiles_on_card
+    from repro_torch.core.skipper import stream_tiles
     from repro_torch.graphs import rmat_graph
     from repro_torch.kernels.skipper_match import kernel, ref
 
@@ -857,7 +896,7 @@ def accesses_line(dev, seed: int, tile: int, instance: str):
     err, k_ms = 0, {}
     for inst in kernel.INSTANCES:
         k_ms[inst], got = cuda_time(
-            lambda inst=inst: tiles_on_card(ut, vt, n, instance=inst),
+            lambda inst=inst: raw_kernel(ut, vt, n, inst),
             reps=3)
         e = max_err(*zip(got, want))
         require(e == 0, f"raw stream RMAT {ACCESS_SCALE}, {inst} instance: "
@@ -903,7 +942,7 @@ def phase_raw(dev, edges, seed: int, match_ms: float):
         check_matching, check_state_domain, conflict_table, ems_idmm,
         ems_israeli_itai, sidmm, skipper)
     from repro_torch.core.ems import MAX_ROUNDS
-    from repro_torch.core.skipper import stream_tiles, tiles_on_card
+    from repro_torch.core.skipper import stream_tiles
     from repro_torch.core.statespec import DEFAULT
     from repro_torch.graphs import rmat_graph
     from repro_torch.kernels.skipper_match import kernel
@@ -947,7 +986,7 @@ def phase_raw(dev, edges, seed: int, match_ms: float):
     num_tiles = ut.shape[0]
     instance = kernel.boundary_instance(n, RAW_TILE)
     k_ms, k_out = cuda_time(
-        lambda: tiles_on_card(ut, vt, n, instance=instance), reps=3)
+        lambda: raw_kernel(ut, vt, n, instance), reps=3)
     want = (res.state, res.match_mask,
             conf)  # the main path's result, in stream order
     mask_k = k_out[1].T.reshape(-1)[:m]
@@ -1017,8 +1056,11 @@ def phase_raw(dev, edges, seed: int, match_ms: float):
     # the APRAM oracle on masks from the card
     t0 = time.perf_counter()
     pins = pin_entry_points(rmat_graph(7, 2, seed=3), window=64,
-                            tile_size=32, device=dev)
-    require(len(pins) == 9 and "skipper_match_cuda@u8" in pins,
+                            tile_size=32, device=dev,
+                            include_distributed=True, include_chaos=True)
+    require(len(pins) == 13 and "skipper_match_cuda@u8" in pins
+            and "distributed@legacy_i32" in pins
+            and "chaos_recover@u8" in pins,
             f"pin_entry_points pinned {sorted(pins)}")
     log(f"APRAM oracle on the card: {len(pins)} entry points pinned as "
         f"reachable traces ({sorted(pins)}) in "
@@ -1045,6 +1087,364 @@ def phase_raw(dev, edges, seed: int, match_ms: float):
             "plain_ms": plain_ms, "plain_case": plain_case,
             "bound_ms": h100.bytes_ms(bound), "bound_by": "bytes",
             "library_ms": None}
+
+
+# --------------------------------------------------------------- phase 4c --
+#: the global-tier block of phase 4c's full-scale distributed runs: the
+#: smallest power of two whose runs keep the phase near 180 s (the
+#: reference's default, 512, would take 79,202 and 131,076 host-bound
+#: rounds of about 1.2 ms; PERF.md section 4)
+DIST_BLOCK = 4096
+#: phase 3's small schedules that phase 4c runs on the card
+DIST_SMALL = ("all_boundary", "dups_loops")
+#: the fault sites, as tests/test_faults.py plans them
+DIST_PLANS = {
+    "drop": dict(seed=7, drop_proposals=0.3),
+    "truncate": dict(seed=7, truncate_retry=0),
+    "corrupt": dict(seed=7, corrupt_state=0.05),
+    "lose_shard": dict(seed=7, lose_shard=0),
+    "skip_drain": dict(seed=7, skip_drain=True),
+}
+#: the chaos plan of the full-scale skipper_match runs (the APRAM
+#: oracle's chaos row)
+CHAOS = dict(seed=7, drop_proposals=0.25, corrupt_state=0.05)
+DIST_STATS = ("proposals", "lost_proposals", "requeued", "retry_overflow",
+              "undrained", "gathered_bytes", "recovery_attempts",
+              "residual_edges", "recovered_matches", "corrupted_cells")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def stats_dict(stats) -> dict:
+    return {f: int(torch.as_tensor(getattr(stats, f))) for f in DIST_STATS}
+
+
+def run_err(a, b) -> int:
+    """max_abs_err of two matcher results (``(result, stats_or_report)``
+    or ``(result, conflicts, report)``): mask, state, counters, and every
+    stats or report field."""
+    from repro_torch.core.faults import RecoveryReport
+
+    pairs = [(a[0].match_mask, b[0].match_mask), (a[0].state, b[0].state)]
+    for f in ("edge_reads", "state_loads", "state_stores", "rounds"):
+        pairs.append((getattr(a[0].counters, f), getattr(b[0].counters, f)))
+    err = max_err(*((x.cpu(), y.cpu()) for x, y in pairs))
+    for x, y in zip(a[1:], b[1:]):
+        if isinstance(x, torch.Tensor):
+            err = max(err, max_err((x.cpu(), y.cpu())))
+        elif isinstance(x, RecoveryReport):
+            err = max(err, *(abs(u - w) for u, w in zip(
+                dataclasses.astuple(x), dataclasses.astuple(y))))
+        else:
+            sx, sy = stats_dict(x), stats_dict(y)
+            err = max(err, *(abs(sx[f] - sy[f]) for f in DIST_STATS))
+    return err
+
+
+def dist_small(dev):
+    """Phase 4c's small cases: ``distributed_skipper`` (one rank, no
+    process group) on both schedules, clean and under each fault site
+    with ``on_fault="recover"``, and ``skipper_match`` under each site
+    live at D = 1, the kernels (``backend="cuda"``) against the plain
+    path (``"torch"``) on the same CUDA tensors, bit for bit, at both
+    widths. Returns the worst max_abs_err."""
+    from repro_torch.core.distributed import distributed_skipper
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.statespec import StateSpec
+    from repro_torch.graphs import build_window_schedule
+    from repro_torch.kernels.skipper_match import skipper_match
+
+    worst, count, t0 = 0, 0, time.perf_counter()
+    for label, edges, window, tile, reorder in small_cases():
+        if label not in DIST_SMALL:
+            continue
+        s = build_window_schedule(edges, window, tile, reorder=reorder)
+        g = edges.to(dev)
+        kinds = {"dispersed": dict(block_size=2 * tile, tile_size=tile),
+                 "sharded": dict(schedule=s, block_size=2 * tile,
+                                 tile_size=tile)}
+        for spec_name, vr in (("u8", 1), ("legacy_i32", 2)):
+            spec = getattr(StateSpec, spec_name)()
+            runs = []
+            for kind, kw in kinds.items():
+                runs.append((f"distributed {kind}", distributed_skipper,
+                             dict(kw)))
+                for site, plan in DIST_PLANS.items():
+                    runs.append((f"distributed {kind} {site}",
+                                 distributed_skipper,
+                                 dict(kw, faults=FaultPlan(**plan),
+                                      on_fault="recover", verify=True)))
+            for site in ("drop", "corrupt", "lose_shard"):
+                runs.append((f"skipper_match {site}", skipper_match,
+                             dict(schedule=s, with_conflicts=True,
+                                  faults=FaultPlan(**DIST_PLANS[site]),
+                                  on_fault="recover", verify=True)))
+            for name, fn, kw in runs:
+                got = fn(g, backend="cuda", device=dev, spec=spec,
+                         vector_rounds=vr, **kw)
+                want = fn(g, backend="torch", device=dev, spec=spec,
+                          vector_rounds=vr, **kw)
+                err = run_err(got, want)
+                count += 1
+                require(err == 0, f"{label} {spec_name} rounds={vr} {name}: "
+                        f"the kernels and the plain path disagree ({err})")
+                worst = max(worst, err)
+        log(f"  dist {label:>18}: {len(runs)} runs x 2 widths bit-equal "
+            "(kernels against plain)")
+    log(f"phase 4c small cases: {count} comparisons in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return worst
+
+
+#: launches timed back to back in a slab entry, and the GPU spin (cycles)
+#: queued before them so the host enqueues them all ahead of the card
+SLAB_REPS = 20
+SPIN_CYCLES = 200_000_000
+
+
+def slab_entry(dev, path, state, u, v, n, tile, launches, worst):
+    """A kernels-line entry for the global-tier kernel on a distributed
+    path: one slab pass (``engine.stream_pass``'s card route, the kernel
+    over one state row of ``n`` cells) on the path's first slab and
+    committed state, against the plain version. Timing one call would
+    time the host, which enqueues a round's launches one by one; the
+    kernel's own time is taken over ``SLAB_REPS`` launches queued behind a
+    GPU spin, which the card then runs back to back."""
+    from repro_torch.core import engine
+    from repro_torch.core.statespec import StateSpec
+    from repro_torch.kernels.skipper_match import kernel
+    from repro_torch.roofline import h100
+
+    spec = StateSpec(counter="int32")  # the slab pass's widths (u8 state)
+    ut, vt = u.reshape(-1, tile), v.reshape(-1, tile)
+    pairs = torch.zeros(ut.shape[0], dtype=torch.int32, device=dev)
+    rows = [state.reshape(1, n).clone() for _ in range(SLAB_REPS + 1)]
+
+    def launch(row):
+        return kernel.boundary_tier(row, pairs, pairs, ut, vt, spec=spec,
+                                    check_ids=False)
+
+    launch(rows[-1])  # warm
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for row in rows[:SLAB_REPS]:
+        out = launch(row)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / SLAB_REPS
+    got = (rows[SLAB_REPS - 1][0], out[0].reshape(-1) > 0,
+           out[1].reshape(-1))
+    plain_ms, want = cuda_time(lambda: engine.stream_pass(
+        state.clone(), u, v, n=n, vector_rounds=1, tile_size=tile,
+        backend="torch", checked=True))
+    err = max_err(*zip(got, want))
+    require(err == 0, f"{path}: the slab kernel and its plain version "
+            f"disagree ({err})")
+    # the bound counts the state sectors this slab's endpoints touch
+    ids = torch.cat([u, v])
+    sectors = torch.unique(ids[ids >= 0].long() * spec.vmem_bytes
+                           // h100.SECTOR_BYTES).numel()
+    bound = h100.slab_bytes(u.numel(), sectors, n, spec)
+    return {"name": ASYNC, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[ASYNC], "path": path,
+            "launches": launches, "max_abs_err": max(worst, err), "ms": ms,
+            "plain_ms": plain_ms,
+            "plain_case": f"one slab pass of {ut.shape[0]} tiles of {tile} "
+                          f"over {n} cells, the path's first",
+            "state_sectors": sectors,
+            "bound_ms": h100.bytes_ms(bound), "bound_by": "bytes",
+            "library_ms": None}
+
+
+def timed_run(fn):
+    """``(CUDA-event ms, host s, launches, result)`` of one run, with the
+    launch counts reset just before it."""
+    from repro_torch.kernels.skipper_match import kernel
+
+    kernel.reset_launch_counts()
+    t0 = time.perf_counter()
+    ms, out = cuda_time(fn)
+    return ms, time.perf_counter() - t0, kernel.launch_counts(), out
+
+
+def phase_dist(dev, edges, phase4, block: int):
+    """Phase 4c: the distributed matcher and the fault harness on the card.
+    Small cases, kernels against plain; then, in a one-rank NCCL group,
+    ``distributed_skipper`` on phase 4's schedule (equal to phase 4's
+    ``skipper_match`` bit for bit) and on the raw stream (checked), the
+    chaos ``skipper_match`` under ``"report"`` and ``"recover"``, and
+    ``distributed_skipper(on_fault="recover")`` with a lost shard and with
+    a truncated retry buffer. Returns the kernels line's entries."""
+    import torch.distributed as dist
+
+    from repro_torch.core import check_matching, check_state_domain
+    from repro_torch.core.distributed import distributed_skipper
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.graphs import partition_schedule
+    from repro_torch.kernels.skipper_match import skipper_match
+
+    t_phase = time.perf_counter()
+    worst = dist_small(dev)
+    s, res = phase4["schedule"], phase4["result"]
+    tile = s.tile_size
+    metrics = {"block_size": block, "tile": tile}
+
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    require(dist.get_backend() == "nccl", "the process group is not NCCL")
+    log(f"process group: backend {dist.get_backend()}, world size "
+        f"{dist.get_world_size()}")
+
+    def check(label, g, mask, state):
+        chk = check_matching(g, mask)
+        dom = check_state_domain(state)
+        require(bool(chk["valid"]) and bool(chk["maximal"]),
+                f"{label}: check_matching failed {chk}")
+        require(bool(dom["clean"]), f"{label}: state domain {dom}")
+        return int(chk["num_matches"])
+
+    def report_run(label, ms, host_s, launches, rounds, stats=None):
+        rec = {"ms": ms, "host_s": host_s, "launches": launches}
+        if rounds:
+            rec.update(rounds=rounds, ms_per_round=ms / rounds)
+        if stats is not None:
+            rec["stats"] = stats_dict(stats)
+        metrics[label] = rec
+        log(f"{label}: " + json.dumps(rec))
+
+    edges_dev = edges.to(dev)
+    # the locality-sharded schedule, D = 1: phase 4's schedule and result
+    ds = partition_schedule(s, 1, block)
+    rounds_sh = ds.num_rounds + 4
+    ms, host_s, launches_sh, (rd, st) = timed_run(
+        lambda: distributed_skipper(edges, schedule=s, block_size=block,
+                                    device=dev))
+    report_run("sharded", ms, host_s, launches_sh, rounds_sh, st)
+    require(torch.equal(rd.match_mask, res.match_mask)
+            and torch.equal(rd.state, res.state),
+            "the sharded run differs from phase 4's skipper_match")
+    require(st.ok, "the sharded run tripped a must-be-zero invariant")
+    require(launches_sh[WINDOW_ASYNC] == 1
+            and launches_sh[ASYNC] == 2 * rounds_sh
+            and launches_sh[WINDOW] == 0 and launches_sh[BOUNDARY] == 0,
+            f"the sharded run's launches: {launches_sh}")
+    log(f"sharded D=1: bit-equal to phase 4's skipper_match (mask and "
+        f"state), {int(res.match_mask.sum())} matches, "
+        f"{ds.num_rounds} rounds + 4 drains of block {block}")
+    del rd, st
+
+    # the dispersed schedule on the raw stream, D = 1
+    rounds_dp = -(-edges.num_edges // block) + 4
+    ms, host_s, launches_dp, (rp, st) = timed_run(
+        lambda: distributed_skipper(edges_dev, block_size=block,
+                                    tile_size=tile, device=dev))
+    report_run("dispersed", ms, host_s, launches_dp, rounds_dp, st)
+    require(st.ok, "the dispersed run tripped a must-be-zero invariant")
+    require(launches_dp[ASYNC] == 2 * rounds_dp
+            and sum(launches_dp.values()) == launches_dp[ASYNC],
+            f"the dispersed run's launches: {launches_dp}")
+    matches = check("dispersed", edges_dev, rp.match_mask, rp.state)
+    ec = edges_dev.canonical()
+    slot_certificate(ec.u.long(), ec.v.long(),
+                     torch.arange(ec.num_edges, device=dev), rp.match_mask,
+                     edges.num_vertices, "dispersed certificate")
+    log(f"dispersed D=1: valid maximal matching of {matches} edges, state "
+        "clean, greedy certificate in stream order holds")
+    del rp, st
+
+    # chaos: skipper_match under the oracle's chaos plan
+    plan = FaultPlan(**CHAOS)
+    ms, host_s, launches, (r, rep) = timed_run(
+        lambda: skipper_match(edges, schedule=s, faults=plan,
+                              on_fault="report", device=dev))
+    report_run("chaos_report", ms, host_s, launches, 0)
+    metrics["chaos_report"]["report"] = dataclasses.astuple(rep)
+    require(rep.residual_edges > 0 and rep.corrupted_cells > 0,
+            f"the chaos plan did not bite: {rep}")
+    ms, host_s, launches, (r, rep) = timed_run(
+        lambda: skipper_match(edges, schedule=s, faults=plan,
+                              on_fault="recover", verify=True, device=dev))
+    report_run("chaos_recover", ms, host_s, launches, 0)
+    metrics["chaos_recover"]["report"] = dataclasses.astuple(rep)
+    require(launches[ASYNC] == 2, f"chaos recover launches: {launches}")
+    matches = check("chaos recover", edges_dev, r.match_mask, r.state)
+    log(f"chaos skipper_match: report {dataclasses.astuple(rep)}; recovered "
+        f"to a valid maximal matching of {matches} edges, state clean")
+    del r
+
+    # the ladder across the protocol: a lost shard, a truncated buffer
+    for label, kw in (("lose_shard", dict(lose_shard=0)),
+                      ("truncate_retry", dict(truncate_retry=0))):
+        plan = FaultPlan(seed=7, **kw)
+        ms, host_s, launches, (r, st) = timed_run(
+            lambda: distributed_skipper(edges, schedule=s, block_size=block,
+                                        faults=plan, on_fault="recover",
+                                        verify=True, device=dev))
+        report_run(f"recover_{label}", ms, host_s, launches, 0, st)
+        matches = check(f"recover {label}", edges_dev, r.match_mask, r.state)
+        log(f"distributed recover {label}: valid maximal matching of "
+            f"{matches} edges, state clean")
+        del r, st
+    dist.destroy_process_group()
+
+    # the kernels line: the two matcher kernels on their new paths, each
+    # slab kernel timed on its path's first slab against the plain pass
+    # the first round's slab (an empty retry buffer, then block 0) against
+    # the committed state after phase A
+    n_flat = s.num_windows * s.window
+    pad = torch.full((block,), -1, dtype=torch.int32, device=dev)
+    committed = torch.zeros((s.num_windows, s.window), dtype=torch.uint8,
+                            device=dev)
+    committed[put(s.window_ids, dev).long()] = _window_states(s, dev)
+    committed = committed.reshape(-1)
+    u = torch.cat([pad, put(ds.boundary_ub[0, 0], dev)])
+    v = torch.cat([pad, put(ds.boundary_vb[0, 0], dev)])
+    valid = (u >= 0) & (u != v)
+    u, v = torch.where(valid, u, -1), torch.where(valid, v, -1)
+    entries = [dict(phase4["window_entry"],
+                    path="distributed_skipper (locality-sharded, D = 1, "
+                         "NCCL): phase A", launches=launches_sh[WINDOW_ASYNC],
+                    max_abs_err=max(phase4["window_entry"]["max_abs_err"],
+                                    worst))]
+    entries.append(slab_entry(
+        dev, "distributed_skipper (locality-sharded, D = 1, NCCL): "
+             f"{rounds_sh} rounds x 2 slab passes", committed, u, v, n_flat,
+        tile, launches_sh[ASYNC], worst))
+    ec = edges_dev.canonical()
+    u = torch.cat([pad, ec.u[:block]])
+    v = torch.cat([pad, ec.v[:block]])
+    valid = (u >= 0) & (u != v)
+    u, v = torch.where(valid, u, -1), torch.where(valid, v, -1)
+    entries.append(slab_entry(
+        dev, "distributed_skipper (dispersed raw stream, D = 1, NCCL): "
+             f"{rounds_dp} rounds x 2 slab passes",
+        torch.zeros(edges.num_vertices, dtype=torch.uint8, device=dev), u,
+        v, edges.num_vertices, tile, launches_dp[ASYNC], worst))
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    log("distributed metrics: " + json.dumps(metrics))
+    return entries
+
+
+def _window_states(s, dev):
+    """Phase A's committed rows of schedule ``s`` (u8), through the window
+    tier kernel."""
+    from repro_torch.core import engine
+
+    states, _, _ = engine.window_tier_pass(
+        put(s.u_tiles, dev), put(s.v_tiles, dev), window=s.window,
+        tiles_per_window=s.tiles_per_window, tile_size=s.tile_size,
+        vector_rounds=1, backend="cuda")
+    return states
 
 
 # --------------------------------------------------------------- phase 4a --
@@ -1806,9 +2206,10 @@ def main() -> int:
             "the PTX, not 4")
 
     worst = phase_small(dev)
-    kernels, edges, match_ms = phase_full(dev, args.seed, args.scale, worst)
-    kernels.append(phase_raw(dev, edges, args.seed, match_ms))
-    del edges
+    kernels, edges, phase4 = phase_full(dev, args.seed, args.scale, worst)
+    kernels.append(phase_raw(dev, edges, args.seed, phase4["match_ms"]))
+    kernels += phase_dist(dev, edges, phase4, DIST_BLOCK)
+    del edges, phase4
     # after phase 4: the analyzer's serving census leaves cuBLAS's
     # workspace allocated, which phase 4's peak device memory would count
     kernels += phase_analysis(dev)

@@ -17,13 +17,15 @@ kernel against its plain version. The rules prove per commit that
   (``rules/order.py`` ``tier-order``) and each entry point launches the
   kernels it should (``rules/census.py`` ``kernel-census``);
 * host syncs appear only at documented sites, ``lru_cache`` keys are
-  hashable statics, and no literal state dtype escapes
-  ``core/statespec`` (``rules/host_sync.py``, ``rules/state_dtype.py``).
+  hashable statics, no literal state dtype escapes ``core/statespec``,
+  and no internal caller touches the deprecated
+  ``DistStats.gathered_ints`` alias (``rules/host_sync.py``,
+  ``rules/state_dtype.py``, ``rules/deprecated_alias.py``).
 
 The JAX rules with no Hopper meaning have no counterpart here:
 ``mosaic-lowering`` and ``tile-geometry`` (Mosaic facts), ``block-race``
-(its role is ``tier-order``'s), ``traced-callback`` (eager PyTorch traces
-nothing) and ``deprecated-alias`` (``DistStats`` is not ported yet).
+(its role is ``tier-order``'s) and ``traced-callback`` (eager PyTorch
+traces nothing).
 
 Entry points: ``python -m repro_torch.analysis`` (CLI, JSON report,
 mutation canaries), or programmatically::

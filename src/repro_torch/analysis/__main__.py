@@ -4,7 +4,8 @@
 Builds every kernel instance of the port with nvcc and runs the rule
 battery (shared-memory budget and V-independence, local memory,
 registers, shared-memory barriers, tier order, kernel census) over them,
-plus the source rules (host syncs, lru cache keys, state dtypes) over the
+plus the source rules (host syncs, lru cache keys, state dtypes,
+deprecated aliases) over the
 given roots.
 
 Usage (from the repository root)::

@@ -4,7 +4,7 @@
 Three rule kinds (``base.py``):
 
 * ``SourceRule``  — AST checks over ``.py`` files (state-dtype, host-sync,
-  lru-static-key); they run anywhere.
+  lru-static-key, deprecated-alias); they run anywhere.
 * ``KernelRule``  — checks over one built kernel instance: its ptxas
   report (smem-budget, local-memory, registers), its PTX (smem-barrier),
   and a run of it against its plain version (tier-order).

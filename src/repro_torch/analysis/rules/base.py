@@ -90,6 +90,7 @@ def _build_registry() -> List[Rule]:
     # imported here (not at module top) so base.py stays import-cycle free
     from repro_torch.analysis.rules.barrier import SmemBarrier
     from repro_torch.analysis.rules.census import KernelCensus
+    from repro_torch.analysis.rules.deprecated_alias import DeprecatedAlias
     from repro_torch.analysis.rules.host_sync import HostSync, LruStaticKey
     from repro_torch.analysis.rules.order import TierOrder
     from repro_torch.analysis.rules.resources import (
@@ -110,6 +111,7 @@ def _build_registry() -> List[Rule]:
         StateDtype(),
         HostSync(),
         LruStaticKey(),
+        DeprecatedAlias(),
     ]
 
 

@@ -10,7 +10,9 @@ graph the asynchronous global tier once and nothing else;
 bf16 and in f32, the bf16 tensor-core kernel once and the three-term TF32
 kernel and its pre-pass once each, and the CUDA-core kernel never; the
 serving decode step none (the models' attention is the plain chunked
-form, as in the JAX package). A refactor that drops a kernel from
+form, as in the JAX package); ``distributed_skipper`` on one rank the
+global tier twice a round (its local pass and its replay) and, on the
+locality-sharded schedule, the window tier once. A refactor that drops a kernel from
 its path, or adds launches, fails here rather than passing unseen.
 """
 from __future__ import annotations

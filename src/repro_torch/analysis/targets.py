@@ -20,8 +20,10 @@ reference's canonical geometry (``targets.py:27-31``: tile 256, window
   plain version.
 * Entry targets (:class:`EntryTarget`) run an entry point once on the card
   and report how many times each kernel launched (``kernel-census``):
-  ``skipper_match``, the raw-stream ``skipper``, ``flash_attention`` and
-  the serving decode step.
+  ``skipper_match``, the raw-stream ``skipper``, ``flash_attention``, the
+  serving decode step, and ``distributed_skipper`` on one rank on each
+  schedule (``distributed_sharded``, ``distributed_dispersed``: two
+  global-tier launches a round, the local pass and the replay).
 """
 from __future__ import annotations
 
@@ -282,6 +284,34 @@ def _run_skipper(device: torch.device) -> Dict[str, int]:
     return _counts()
 
 
+#: the distributed targets' global-tier block and drain rounds (the
+#: reference's ``targets.py`` traces the same: block 512, four drains)
+DIST_BLOCK = 512
+DIST_DRAINS = 4
+
+
+def _dist_rounds(sharded: bool) -> int:
+    """Rounds (dealt blocks and drains) of the one-rank distributed run on
+    the canonical graph: each launches the global tier twice."""
+    if sharded:
+        dealt = -(-canonical_schedule(1).num_boundary_padded // DIST_BLOCK)
+    else:
+        dealt = -(-canonical_graph(1).num_edges // DIST_BLOCK)
+    return dealt + DIST_DRAINS
+
+
+def _run_distributed(device: torch.device, sharded: bool) -> Dict[str, int]:
+    from repro_torch.core.distributed import distributed_skipper
+
+    kw = dict(schedule=canonical_schedule(1)) if sharded else {}
+    _reset()
+    distributed_skipper(canonical_graph(1), block_size=DIST_BLOCK,
+                        tile_size=TILE, drain_rounds=DIST_DRAINS,
+                        device=device, **kw)
+    torch.cuda.synchronize(device)  # host-sync: ok — counts after the run
+    return _counts()
+
+
 def _run_flash_attention(device: torch.device) -> Dict[str, int]:
     from repro_torch.kernels.flash_attention import flash_attention
 
@@ -341,6 +371,17 @@ def _entry_targets() -> List[EntryTarget]:
         EntryTarget("serve_decode_step", _run_serve_decode_step,
                     {flash.FLASH: 0, flash.FLASH_WGMMA: 0,
                      flash.FLASH_TF32: 0, flash.FLASH_SPLIT: 0}),
+    ] + [
+        EntryTarget(f"distributed_{kind}",
+                    functools.partial(_run_distributed,
+                                      sharded=kind == "sharded"),
+                    {kernel.BOUNDARY_ASYNC: 2 * _dist_rounds(
+                        kind == "sharded"),
+                     kernel.WINDOW_ASYNC: int(kind == "sharded"),
+                     kernel.WINDOW_TIER: 0, kernel.BOUNDARY: 0,
+                     flash.FLASH: 0, flash.FLASH_WGMMA: 0,
+                     flash.FLASH_TF32: 0, flash.FLASH_SPLIT: 0})
+        for kind in ("sharded", "dispersed")
     ]
 
 

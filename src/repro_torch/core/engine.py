@@ -1,6 +1,7 @@
 """The shared first-claim engine (port of ``repro.core.engine``): the
-unit-capacity rounds of the matcher and the capacitated first-K-claim
-rounds of the b-matching (``tile_pass_capacitated``).
+unit-capacity rounds of the matcher, the slab pass that walks them
+(``stream_pass``) and the capacitated first-K-claim rounds of the
+b-matching (``tile_pass_capacitated``).
 
 Every matcher enforces the paper's invariant (Alg. 1): every edge is decided
 (matched / dead) at the moment it is touched, and an edge is dead only if
@@ -594,6 +595,79 @@ def tile_pass_capacitated(
         state, u, v, valid, matched, rank_fn, gather=gather, scatter=scatter,
         capacities=(cap_u, cap_v))
     return state, matched, conflicts, taken
+
+
+def stream_pass(
+    state: torch.Tensor,
+    u: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    n: int,
+    vector_rounds: int,
+    tile_size: int,
+    conflict_method: str = "auto",
+    spec: Optional[StateSpec] = None,
+    backend: Optional[str] = None,
+    checked: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Greedy first-claim pass over an [L] edge slab in stream order, tiled
+    contiguously (slot ``t * tile_size + l``; ``L % tile_size == 0``; -1
+    marks padding): the sequential single pass over the slab's edges at
+    tile granularity, against ``state`` [n], which is updated **in place**
+    (the reference's scan carry is functional: a caller that needs the old
+    state passes a copy).
+
+    The one slab pass of the distributed matcher's LOCAL PASS and REPLAY
+    (``core/distributed.py``) and of the fault recovery's residual replay
+    (``core/faults.py``), so the recovery cannot drift from the protocol
+    it recovers.
+
+    ``backend="torch"`` loops :func:`tile_pass` over the tiles (any
+    device); ``"cuda"`` runs the slab through the global-tier kernel as
+    one state row of ``n`` cells with every tile the pair (0, 0)
+    (``core/skipper.tiles_on_card``; the kernel picks its instance), at
+    the state's own width. ``None``: ``"cuda"`` on a CUDA tensor,
+    ``"torch"`` elsewhere. On the card an invalid slot (``u < 0`` or
+    ``u == v``) is written as (-1, -1) first, and the ids are range
+    checked, unless ``checked=True`` says the caller has done both.
+
+    Returns ``(state, matched bool[L], conflicts[L])``: conflicts int32, or
+    ``spec.counter`` when a spec is passed; the state keeps its dtype.
+    """
+    num_tiles = u.shape[0] // tile_size
+    ut = u.reshape(num_tiles, tile_size)
+    vt = v.reshape(num_tiles, tile_size)
+    if backend is None:
+        backend = "cuda" if state.device.type == "cuda" else "torch"
+    if backend == "cuda":
+        if state.device.type != "cuda":
+            raise ValueError("backend='cuda' needs CUDA tensors")
+        from repro_torch.core.skipper import tiles_on_card
+
+        if not checked:
+            valid = (ut >= 0) & (ut != vt)
+            ut = torch.where(valid, ut, -1)
+            vt = torch.where(valid, vt, -1)
+        card_spec = spec if spec is not None else StateSpec(counter="int32")
+        matched, conflicts = tiles_on_card(
+            state, ut.contiguous(), vt.contiguous(), vector_rounds,
+            card_spec, checked=checked)
+        if spec is None:
+            conflicts = conflicts.to(torch.int32)
+        return state, matched.reshape(-1), conflicts.reshape(-1)
+    if backend != "torch":
+        raise ValueError(f"unknown backend {backend!r}")
+    cdt = torch.int32 if spec is None else spec.counter_dtype
+    matched = torch.zeros((num_tiles, tile_size), dtype=torch.bool,
+                          device=u.device)
+    conflicts = torch.zeros((num_tiles, tile_size), dtype=cdt,
+                            device=u.device)
+    for k in range(num_tiles):
+        _, matched[k], conflicts[k], _ = tile_pass(
+            state, ut[k], vt[k], n=n, vector_rounds=vector_rounds,
+            conflict_method=conflict_method, spec=spec,
+        )
+    return state, matched.reshape(-1), conflicts.reshape(-1)
 
 
 def window_tier_pass(

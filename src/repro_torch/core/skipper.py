@@ -28,6 +28,7 @@ raises without one.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -78,8 +79,10 @@ def skipper(
     n, m = edges.num_vertices, edges.num_edges
     ut, vt = stream_tiles(edges.to(dev), tile_size, dispersed)
     if dev.type == "cuda":
-        state, matched, conflicts = tiles_on_card(ut, vt, n, vector_rounds,
-                                                  spec)
+        row = torch.zeros((n,), dtype=spec.vmem_dtype, device=dev)
+        matched, conflicts = tiles_on_card(row, ut, vt, vector_rounds, spec)
+        state = row.to(spec.at_rest_dtype)
+        conflicts = conflicts.to(torch.int32)
     else:
         from repro_torch.kernels.skipper_match.ref import ref_skipper
 
@@ -142,27 +145,41 @@ def stream_tiles(edges: EdgeList, tile_size: int,
             torch.where(valid, vt, pad).contiguous())
 
 
-def tiles_on_card(ut: torch.Tensor, vt: torch.Tensor, n: int,
+def tiles_on_card(row: torch.Tensor, ut: torch.Tensor, vt: torch.Tensor,
                   vector_rounds: int = 1, spec: Optional[StateSpec] = None,
-                  instance: Optional[str] = None):
+                  instance: Optional[str] = None, checked: bool = False):
     """:func:`stream_tiles`' tiles (CUDA tensors) through the global-tier
-    kernel: one fresh state row of width ``n``, every tile the pair (0, 0).
-    ``instance`` names the kernel's instance (``"staged"`` or
-    ``"device"``); ``None`` lets ``kernel.boundary_instance`` pick it for
-    ``n``, as :func:`skipper` does. Returns ``(state spec.at_rest[n],
-    matched bool, conflicts int32)``, the last two of ``ut``'s shape."""
+    kernel: ``row``, a contiguous [n] state tensor of a kernel width
+    (uint8 or int32), is the one state row, every tile the pair (0, 0).
+    The kernel updates ``row`` **in place** and runs at its width;
+    ``spec`` sets the counter width. ``instance`` names the kernel's
+    instance (``"staged"`` or ``"device"``); ``None`` lets
+    ``kernel.boundary_instance`` pick it for ``n``, as :func:`skipper`
+    does, except that a row off a 16-byte boundary (which the staged
+    instance's bulk copies cannot move) takes the device-memory instance.
+    ``checked=True`` says every slot is already padding (-1, -1) or a
+    pair of ids in [0, n), so the kernel's range check, which waits for
+    the card, is skipped. Returns ``(matched bool, conflicts
+    spec.counter)``, of ``ut``'s shape."""
     from repro_torch.kernels.skipper_match import kernel
 
-    spec = resolve_spec(spec)
-    num_tiles = ut.shape[0]
-    row = torch.zeros((1, n), dtype=spec.vmem_dtype, device=ut.device)
-    if num_tiles == 0 or n == 0:  # nothing can match: no launch
+    n = row.shape[0]
+    name = str(row.dtype).removeprefix("torch.")
+    spec = dataclasses.replace(resolve_spec(spec), vmem=name)
+    if ut.shape[0] == 0 or n == 0:  # nothing can match: no launch
         spec.validate_rounds(vector_rounds)
-        zero = torch.zeros(ut.shape, dtype=torch.int32, device=ut.device)
-        return row[0].to(spec.at_rest_dtype), zero > 0, zero
-    pairs = torch.zeros((num_tiles,), dtype=torch.int32, device=ut.device)
+        zero = torch.zeros(ut.shape, dtype=spec.counter_dtype,
+                           device=ut.device)
+        return zero > 0, zero
+    if (instance is None and row.data_ptr() % 16
+            and ut.shape[1] <= kernel.BOUNDARY_ASYNC_MAX_THREADS):
+        instance = "device"
+    # the kernel's bulk copies move the ids in 16-byte units
+    ut = ut.clone() if ut.data_ptr() % 16 else ut
+    vt = vt.clone() if vt.data_ptr() % 16 else vt
+    pairs = torch.zeros((ut.shape[0],), dtype=torch.int32, device=ut.device)
     matched, conflicts = kernel.boundary_tier(
-        row, pairs, pairs, ut, vt, vector_rounds=vector_rounds, spec=spec,
-        instance=instance)
-    return (row[0].to(spec.at_rest_dtype), matched > 0,
-            conflicts.to(torch.int32))
+        row.reshape(1, n), pairs, pairs, ut, vt,
+        vector_rounds=vector_rounds, spec=spec, instance=instance,
+        check_ids=not checked)
+    return matched > 0, conflicts

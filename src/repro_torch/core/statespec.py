@@ -10,10 +10,14 @@ field                 governs
                       shared-memory row, the global tier's
                       ``[num_windows, window]`` device state, and the plain
                       versions' state
-``wire``              distributed state-assembly payload (not ported yet)
+``wire``              distributed state-assembly payload (the O(V)
+                      cross-device combine of the locality-sharded
+                      matcher, :meth:`StateSpec.combine_rows`)
 ``counter``           per-edge matched/conflicts output arrays
 ``accum``             index math — always ``int32``
-``combine``           distributed combine policy name (not ported yet)
+``combine``           that combine's policy: ``"max"`` (exact at any
+                      width: rows are device-disjoint) or ``"psum"`` (the
+                      legacy i32 graph)
 ====================  =====================================================
 
 ``StateSpec.u8()`` is the default (1 B/vertex in every tier);
@@ -111,6 +115,28 @@ class StateSpec:
     def validate_capacity(self, cap: int) -> bool:
         """True iff a used-count bounded by ``cap`` fits ``at_rest``."""
         return cap <= _DTYPE_MAX[self.at_rest]
+
+    # --- distributed combine --------------------------------------------
+    def combine_rows(self, rows: torch.Tensor, group=None) -> torch.Tensor:
+        """Width-honest cross-device combine of the O(V) state assembly,
+        in place on ``rows`` (``spec.wire`` width), which it returns.
+
+        Each (row, slot) cell is written by exactly one device (the row
+        owner) and is zero (ACC) everywhere else, so ``all_reduce(MAX)``
+        over the disjoint contributions is exact at any width and is not
+        widened: a u8 wire stays u8. Under ``combine == "psum"`` (the
+        legacy i32 spec) it is ``all_reduce(SUM)``, equally exact on
+        disjoint rows where ``D * max_state`` cannot wrap. ``group=None``
+        with no initialised process group is one device: the identity."""
+        import torch.distributed as dist
+
+        if group is None and not (dist.is_available()
+                                  and dist.is_initialized()):
+            return rows
+        op = (dist.ReduceOp.SUM if self.combine == "psum"
+              else dist.ReduceOp.MAX)
+        dist.all_reduce(rows, op=op, group=group)
+        return rows
 
     # --- blessed specs ---------------------------------------------------
     @classmethod

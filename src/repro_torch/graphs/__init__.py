@@ -1,6 +1,7 @@
 """Graph substrate: the edge-list and CSR containers, generators, CSR
-utilities, stream padding, locality reordering and the two-tier window
-schedule (host numpy)."""
+utilities, locality reordering, the two-tier window schedule (host numpy)
+and the distributed matcher's deals (stream padding, dispersed blocks,
+the locality-sharded partition)."""
 from repro_torch.graphs.types import CSRGraph, EdgeList
 from repro_torch.graphs.generators import (
     bipartite_graph,
@@ -12,7 +13,14 @@ from repro_torch.graphs.generators import (
     star_graph,
 )
 from repro_torch.graphs.csr import dedup_edges, edges_to_csr, symmetrize
-from repro_torch.graphs.partition import pad_edges
+from repro_torch.graphs.partition import (
+    DeviceSchedule,
+    contiguous_chunks,
+    dispersed_blocks,
+    locality_device_schedule,
+    pad_edges,
+    partition_schedule,
+)
 from repro_torch.graphs.reorder import (
     Reordering,
     intra_window_fraction,
@@ -34,6 +42,11 @@ __all__ = [
     "symmetrize",
     "dedup_edges",
     "pad_edges",
+    "dispersed_blocks",
+    "contiguous_chunks",
+    "DeviceSchedule",
+    "locality_device_schedule",
+    "partition_schedule",
     "Reordering",
     "reorder_vertices",
     "intra_window_fraction",

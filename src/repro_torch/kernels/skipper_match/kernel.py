@@ -465,6 +465,7 @@ def boundary_tier(
     spec: Optional[StateSpec] = None,
     instance: Optional[str] = None,
     profile: Optional[torch.Tensor] = None,
+    check_ids: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Global tier: the block-pair grouped tiles in schedule order, against
     ``state_rows`` spec.vmem[num_windows, window], updated **in place**.
@@ -482,7 +483,10 @@ def boundary_tier(
     tensor of
     ``len(PROFILE_FIELDS)`` elements, receives the tile loop's cycle
     spans on thread 0 (see :data:`PROFILE_FIELDS`); it costs a few clock
-    reads a tile.
+    reads a tile. ``check_ids=False`` skips the range check of the ids
+    and pairs, which waits for the card: only for a caller that has
+    checked every id it can pass, once, as the distributed matcher's
+    rounds do (``core/distributed.py``).
     """
     spec = resolve_spec(spec)
     num_tiles, tile_size, num_windows, window = _boundary_args(
@@ -506,7 +510,8 @@ def boundary_tier(
                  "and no profile")
         return boundary_tier_sync(state_rows, blk_u, blk_v, u_tiles,
                                   v_tiles, vector_rounds=vector_rounds,
-                                  fallback=fallback, spec=spec)
+                                  fallback=fallback, spec=spec,
+                                  check_ids=check_ids)
     fit = boundary_instance(window, tile_size, spec)
     instance = instance or fit
     _require(instance == "device" or fit == "staged",
@@ -529,7 +534,9 @@ def boundary_tier(
     conflicts = torch.empty_like(matched)
     if num_tiles == 0:
         return matched, conflicts
-    _check_boundary_ids(blk_u, blk_v, u_tiles, v_tiles, num_windows, window)
+    if check_ids:
+        _check_boundary_ids(blk_u, blk_v, u_tiles, v_tiles, num_windows,
+                            window)
     _check_profile(profile, PROFILE_FIELDS, u_tiles.device)
     fn = getattr(_library(),
                  f"skipper_boundary_async_{spec.vmem}_{spec.counter}")
@@ -554,10 +561,12 @@ def boundary_tier_sync(
     vector_rounds: int = 1,
     fallback: bool = True,
     spec: Optional[StateSpec] = None,
+    check_ids: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`boundary_tier`'s function through ``skipper_boundary_kernel``,
     which reads each tile's ids and state cells from device memory on the
-    tile's chain. CUDA tensors only; nothing on the main path calls it."""
+    tile's chain. CUDA tensors only; on a path only for tiles wider than
+    :data:`BOUNDARY_ASYNC_MAX_THREADS` lanes. ``check_ids`` as there."""
     spec = resolve_spec(spec)
     num_tiles, tile_size, num_windows, window = _boundary_args(
         state_rows, blk_u, blk_v, u_tiles, v_tiles, spec, vector_rounds)
@@ -568,7 +577,9 @@ def boundary_tier_sync(
     conflicts = torch.empty_like(matched)
     if num_tiles == 0:
         return matched, conflicts
-    _check_boundary_ids(blk_u, blk_v, u_tiles, v_tiles, num_windows, window)
+    if check_ids:
+        _check_boundary_ids(blk_u, blk_v, u_tiles, v_tiles, num_windows,
+                            window)
     fn = getattr(_library(), f"skipper_boundary_{spec.vmem}_{spec.counter}")
     stream = torch.cuda.current_stream(u_tiles.device).cuda_stream
     err = fn(blk_u.data_ptr(), blk_v.data_ptr(), u_tiles.data_ptr(),

@@ -120,25 +120,44 @@ def skipper_match(
     the output. ``spec`` picks the state and counter widths
     (``StateSpec.u8()`` by default; ``legacy_i32()`` is bit-identical).
 
-    ``verify=True`` checks that the result is a valid maximal matching with
-    a clean state domain and raises ``RuntimeError`` naming the first
-    offending edge otherwise. Fault injection (``faults=``,
-    ``on_fault="recover"/"report"``) is not ported yet.
+    Failure handling (DESIGN.md §11): ``faults=`` takes a
+    :class:`~repro_torch.core.faults.FaultPlan` (an inactive plan is the
+    clean path) and injects the single-device analogues of the
+    distributed sites at the same stream positions and state cells:
+    ``lose_shard`` loses one window row's state and matched bits after the
+    window tier, ``corrupt_state`` writes ``CORRUPT`` into the assembled
+    state, ``drop_proposals`` drops global-tier slots before the global
+    tier. ``on_fault``:
 
-    Returns ``result`` [, ``conflicts`` int32[|E|] if ``with_conflicts``].
+    * ``"raise"`` (default): return the result as it is; with
+      ``verify=True`` raise ``RuntimeError``, naming the first offending
+      edge, unless it is a valid maximal matching with a clean state.
+    * ``"report"``: append a :class:`~repro_torch.core.faults.RecoveryReport`
+      (detection only). Needs ``edges``.
+    * ``"recover"``: complete the matching by the residual replay
+      (``faults.residual_replay``, through the global-tier kernel on the
+      card); the result is valid and maximal on the uncorrupted graph, and
+      the ``Counters`` still describe the faulted run. Appends the
+      report. Needs ``edges``.
+
+    The report's reads and ``verify`` wait for the card.
+
+    Returns ``result`` [, ``conflicts`` int32[|E|] if ``with_conflicts``]
+    [, ``report`` if ``on_fault != "raise"``].
     """
+    from repro_torch.core import faults as flt
+
     if on_fault not in ("raise", "recover", "report"):
         raise ValueError(
             f"on_fault must be 'raise', 'recover' or 'report', got {on_fault!r}"
         )
-    if faults is not None or on_fault != "raise":
-        raise NotImplementedError(
-            "fault injection and on_fault='recover'/'report' are not ported "
-            "yet (ROADMAP queue 1, item 9)")
-    if verify and edges is None:
+    if (verify or on_fault in ("recover", "report")) and edges is None:
         raise ValueError(
-            "verify=True needs the original edge list — pass edges even "
-            "when a prebuilt schedule is given")
+            "verify=True (and on_fault='recover'/'report') needs the "
+            "original edge list — pass edges even when a prebuilt schedule "
+            "is given")
+    if faults is not None and not faults.active:
+        faults = None  # all sites off: the clean path
     dev = resolve_device(device, "cuda", "skipper_match")
     backend = resolve_backend(backend, dev)
     spec = resolve_spec(spec)
@@ -163,18 +182,37 @@ def skipper_match(
         tiles_per_window=s.tiles_per_window, tile_size=tile_size,
         vector_rounds=vector_rounds, backend=backend, spec=spec,
     )
+    if faults is not None and faults.lose_shard is not None and s.num_rows:
+        # FAULT: one window row's tier contribution (state AND matched
+        # bits) vanishes
+        lost_row = faults.lose_shard % s.num_rows
+        state2[lost_row] = 0
+        matched2[lost_row] = 0
     # rows hold only the dense windows; coalesced windows stay all-ACC
     flat = torch.zeros((s.num_windows, window), dtype=spec.vmem_dtype,
                        device=dev)
     flat[put(s.window_ids).long()] = state2
+    if faults is not None and faults.corrupt_state > 0.0:
+        # FAULT: out-of-domain cells in the assembled state (renumbered
+        # flat ids), as in the locality-sharded distributed run
+        hit = flt.corruption_mask(faults, s.num_windows * window, dev)
+        flat.view(-1).masked_fill_(hit, flt.CORRUPT)
 
     cdt = spec.counter_dtype
     dec = [matched2.reshape(-1)]
     cfs = [conf2.reshape(-1)]
     if nb_tiles:
+        bu, bv = put(s.boundary_ulocal), put(s.boundary_vlocal)
+        if faults is not None and faults.drop_proposals > 0.0:
+            # FAULT: dropped global-tier slots are never decided (the mask
+            # is keyed by global-tier stream position: the distributed
+            # gather-drop's victims)
+            drop = flt.proposal_drop_mask(faults, s.num_boundary_padded, dev)
+            bu = bu.masked_fill(drop, -1)
+            bv = bv.masked_fill(drop, -1)
         args = (flat, put(s.boundary_blk_u), put(s.boundary_blk_v),
-                put(s.boundary_ulocal).reshape(nb_tiles, tile_size),
-                put(s.boundary_vlocal).reshape(nb_tiles, tile_size))
+                bu.reshape(nb_tiles, tile_size),
+                bv.reshape(nb_tiles, tile_size))
         if backend == "cuda":
             bmt, bcf = kernel.boundary_tier(
                 *args, vector_rounds=vector_rounds, spec=spec)
@@ -210,16 +248,55 @@ def skipper_match(
     result = MatchResult(match_mask=mask,
                          state=state_flat.to(spec.at_rest_dtype),
                          counters=counters)
-    if verify:
-        _verify(edges, result)
-    return (result, conf) if with_conflicts else result
+
+    report = None
+    if on_fault == "recover":
+        rmask, rstate, residual, recovered, corrupted = flt.residual_replay(
+            edges, result.match_mask, result.state, tile_size=tile_size,
+            vector_rounds=vector_rounds, spec=spec, backend=backend)
+        counts = torch.stack([residual, recovered, corrupted])
+        res_i, rec_i, cor_i = counts.tolist()  # host-sync: ok — the report
+        result = MatchResult(match_mask=rmask, state=rstate,
+                             counters=counters)
+        report = flt.RecoveryReport(
+            recovery_attempts=1 if (res_i or cor_i) else 0,
+            residual_edges=res_i, recovered_matches=rec_i,
+            corrupted_cells=cor_i)
+    elif on_fault == "report":
+        residual, corrupted = flt.detect_residual(
+            edges, result.match_mask, result.state)
+        counts = torch.stack([residual, corrupted])
+        res_i, cor_i = counts.tolist()  # host-sync: ok — the fault report
+        report = flt.RecoveryReport(residual_edges=res_i,
+                                    corrupted_cells=cor_i)
+    if verify and on_fault != "report":
+        _verify(edges, result, strict=on_fault == "raise")
+
+    out = (result,)
+    if with_conflicts:
+        out = out + (conf,)
+    if on_fault != "raise":
+        out = out + (report,)
+    return out if len(out) > 1 else result
 
 
-def _verify(edges: EdgeList, result: MatchResult) -> None:
+def _verify(edges: EdgeList, result: MatchResult,
+            strict: bool = True) -> None:
+    """``verify=True``: under ``strict`` (``on_fault="raise"``) the result
+    must be a valid maximal matching with a clean state domain; after
+    ``"recover"`` valid and maximal (the ladder's own check); after
+    ``"report"`` nothing is required."""
     chk = check_matching(edges, result.match_mask)
     dom = check_state_domain(result.state)
-    ok_v, ok_m, clean = (bool(x) for x in
+    ok_v, ok_m, clean = (bool(x) for x in  # host-sync: ok — verify=True
                          (chk["valid"], chk["maximal"], dom["clean"]))
+    if not strict:
+        if not (ok_v and ok_m):
+            raise RuntimeError(
+                "verify=True after on_fault='recover': recovered matching "
+                f"failed validation (valid={ok_v}, maximal={ok_m}) — this "
+                "is a bug in the recovery ladder, please report it")
+        return
     if not (ok_v and ok_m and clean):
         raise RuntimeError(
             "verify=True: matching failed validation "

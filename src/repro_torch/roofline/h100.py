@@ -79,6 +79,23 @@ def stream_bytes(num_tiles: int, tile_size: int, num_vertices: int,
             + 2 * spec.counter_bytes * slots)
 
 
+#: bytes of one device-memory sector: the least a read or a write of one
+#: state cell moves
+SECTOR_BYTES = 32
+
+
+def slab_bytes(slots: int, sectors: int, num_vertices: int, spec) -> int:
+    """Bytes one slab pass of the distributed matcher
+    (``engine.stream_pass`` on the card: the global-tier kernel over one
+    state row of ``num_vertices`` cells) must move: the u/v ids in (8 bytes
+    a slot), matched and conflicts out, and only the state the slab's
+    valid endpoints touch: ``sectors`` distinct sectors of
+    :data:`SECTOR_BYTES`, counted from the run's data, each read and
+    written once, capped at the row."""
+    state = min(sectors * SECTOR_BYTES, num_vertices * spec.vmem_bytes)
+    return 8 * slots + 2 * state + 2 * spec.counter_bytes * slots
+
+
 def flash_bound_ms(b, hq, hkv, s, d, dtype: str) -> Tuple[float, str]:
     """The larger of the causal flops (2*B*Hq*S^2*D: both products over half
     the square) at ``dtype``'s rate (``"bfloat16"``: the bf16 tensor cores;

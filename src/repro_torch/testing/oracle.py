@@ -18,9 +18,8 @@ So :func:`pin_trace` doesn't *trust* the theorem — it executes the
 witness under full per-step invariant checking and compares. The port's
 entry points (``skipper``, ``skipper_match`` on each backend of the
 device, ``sgmm``, ``bmatch_assign`` via :func:`bipartite_stream`) are
-pinned this way; :func:`pin_entry_points` bundles the matrix. The
-reference's ``distributed_skipper`` and chaos-recover rows need modules
-the port does not have yet (ROADMAP queue 1, items 11 and 9).
+``distributed_skipper``, the chaos-recovered ``skipper_match``) are
+pinned this way; :func:`pin_entry_points` bundles the matrix.
 """
 from __future__ import annotations
 
@@ -132,8 +131,8 @@ def pin_entry_points(
     window: int = 64,
     tile_size: int = 32,
     device=None,
-    include_distributed: bool = False,
-    include_chaos: bool = False,
+    include_distributed: bool = True,
+    include_chaos: bool = True,
 ) -> Dict[str, ApramResult]:
     """Pin the port's entry points on one edge list, on ``device``
     (``None``: the card).
@@ -144,22 +143,19 @@ def pin_entry_points(
     kernels (``"cuda"``), and ``bmatch_assign`` at budget and capacity 1
     on the edges read as a token-expert stream (token ``u``, expert ``v``,
     pinned through :func:`bipartite_stream`); ``sgmm``, which has no state
-    width, once. Each mask is :func:`pin_trace`-d. ``include_distributed``
-    and ``include_chaos`` ask for the reference's other two rows, whose
-    modules are not ported yet: they raise ``NotImplementedError``.
+    width, once. As the reference's rows: ``include_distributed`` adds
+    ``distributed_skipper`` (one rank, ``block_size=tile_size``, the
+    dispersed schedule) and ``include_chaos`` ``skipper_match`` under
+    ``FaultPlan(seed=7, drop_proposals=0.25, corrupt_state=0.05)`` with
+    ``on_fault="recover"``, both on the device's default backend (the
+    kernels on the card). Each mask is :func:`pin_trace`-d.
 
     Returns ``{"<entry>@<spec>": ApramResult}`` (``"sgmm"`` alone); raises
     :class:`ConformanceError` / ``ApramViolation`` on the first failure.
     """
-    if include_distributed:
-        raise NotImplementedError(
-            "the distributed matcher is not ported yet (ROADMAP queue 1, "
-            "item 11)")
-    if include_chaos:
-        raise NotImplementedError(
-            "fault injection and on_fault='recover' are not ported yet "
-            "(ROADMAP queue 1, item 9)")
     from repro_torch.core.bipartite import bmatch_assign
+    from repro_torch.core.distributed import distributed_skipper
+    from repro_torch.core.faults import FaultPlan
     from repro_torch.core.sgmm import sgmm
     from repro_torch.core.skipper import skipper
     from repro_torch.core.statespec import StateSpec
@@ -194,5 +190,16 @@ def pin_entry_points(
                                token_budget=1, expert_capacity=1,
                                tile_size=tile_size, spec=spec)
         pin(f"bmatch@{tag}", accept, stream)
+        if include_distributed:
+            res, _stats = distributed_skipper(
+                edges, block_size=tile_size, tile_size=tile_size, spec=spec,
+                device=dev)
+            pin(f"distributed@{tag}", res.match_mask)
+        if include_chaos:
+            plan = FaultPlan(seed=7, drop_proposals=0.25, corrupt_state=0.05)
+            res, _report = skipper_match(
+                edges, window=window, tile_size=tile_size, faults=plan,
+                on_fault="recover", spec=spec, device=dev)
+            pin(f"chaos_recover@{tag}", res.match_mask)
     pin("sgmm", sgmm(edges).match_mask)
     return out

@@ -156,6 +156,45 @@ def test_source_rules_agree_with_reference():
     }
 
 
+DEPRECATED_FIXTURE = (
+    "def report(stats):\n"
+    "    total = stats.gathered_bytes\n"
+    "    words = stats.gathered_ints\n"
+    "    same = stats.gathered_ints  # deprecated-alias: ok\n"
+    "    return total, words, same\n")
+
+
+@pytest.mark.parametrize("path,lines", [
+    ("src/repro_torch/bench.py", {3}),
+    ("examples/quickstart_torch.py", {3}),
+    ("src/repro_torch/core/distributed.py", set()),   # the definition site
+    ("tests/test_torch_distributed.py", set()),       # the pinning tests
+])
+def test_deprecated_alias_catches_its_fixture(path, lines):
+    """``deprecated-alias`` flags an internal read of
+    ``DistStats.gathered_ints`` (not ``gathered_bytes``, not a waived
+    line), exempts the definition site and the tests, and agrees with the
+    reference's rule on the same text."""
+    from repro.analysis.rules.deprecated_alias import (
+        DeprecatedAlias as RefDeprecatedAlias)
+    from repro_torch.analysis.rules.deprecated_alias import DeprecatedAlias
+
+    hits = DeprecatedAlias().check_file(
+        SourceFile.parse(path, DEPRECATED_FIXTURE))
+    assert {f.lineno for f in hits} == lines
+    assert all(f.severity is Severity.ERROR and f.rule == "deprecated-alias"
+               for f in hits)
+    ref_path = path.replace("repro_torch", "repro")
+    ref = RefDeprecatedAlias().check_file(
+        RefSourceFile.parse(ref_path, DEPRECATED_FIXTURE))
+    assert {f.lineno for f in ref} == lines
+    # the port's tree is clean under the rule
+    for py in (ROOT / "src" / "repro_torch").rglob("*.py"):
+        rel = str(py.relative_to(ROOT))
+        assert DeprecatedAlias().check_file(
+            SourceFile.parse(rel, py.read_text())) == [], rel
+
+
 def test_host_sync_scope_and_torch_expressions():
     """Outside src/repro_torch, or in a file that does not import torch,
     nothing is a host sync; inside, bool/int/float of a torch expression
@@ -813,7 +852,7 @@ def test_targets_name_every_async_window_instance():
         assert first.launch.func is kernel.window_tier_sync
     assert sum(getattr(t, "kernel", None) == kernel.WINDOW_ASYNC
                for t in by_name.values()) == 4
-    assert len(by_name) == 40  # 36 kernel instances, 4 entry points
+    assert len(by_name) == 42  # 36 kernel instances, 6 entry points
     census = by_name["skipper_match"].expect
     assert census[kernel.WINDOW_ASYNC] == 1
     assert census[kernel.WINDOW_TIER] == 0
@@ -892,9 +931,27 @@ def test_stream_bytes_model():
     assert h100.stream_bytes(0, 512, 0, StateSpec.u8()) == 0
 
 
+@pytest.mark.parametrize("spec", ["u8", "legacy_i32"])
+def test_slab_bytes_model(spec):
+    """One slab pass's byte bound: 8 bytes of ids a slot, matched and
+    conflicts out, and only the state sectors the slab touches, read and
+    written once, capped at the whole row."""
+    s = getattr(StateSpec, spec)()
+    slot_out = 2 * s.counter_bytes
+    assert h100.slab_bytes(8192, 100, 1 << 22, s) == (
+        8 * 8192 + 2 * 100 * 32 + slot_out * 8192)
+    # a slab that touches more sectors than the row holds moves the row
+    assert h100.slab_bytes(64, 50, 100, s) == (
+        8 * 64 + 2 * 100 * s.vmem_bytes + slot_out * 64)
+    assert h100.slab_bytes(0, 0, 1 << 22, s) == 0
+    assert h100.slab_bytes(8192, 16384, 1 << 22, s) < h100.stream_bytes(
+        32, 256, 1 << 22, s)
+
+
 def test_skipper_entry_target_expects_one_global_tier_launch():
     """The analyzer's ``skipper`` entry target: the asynchronous global
-    tier once, every other kernel never; 40 targets in all."""
+    tier once, every other kernel never; 42 targets in all, the two
+    distributed entries among them."""
     from repro_torch.analysis import targets
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.skipper_match import kernel
@@ -904,7 +961,7 @@ def test_skipper_entry_target_expects_one_global_tier_launch():
     others = set(kernel.launch_counts()) | set(flash.launch_counts())
     assert {k for k, n in t.expect.items() if n == 0} == (
         others - {kernel.BOUNDARY_ASYNC})
-    assert len(targets.target_names()) == 40
+    assert len(targets.target_names()) == 42
 
 
 @pytest.mark.parametrize("fault", ["nvcc fails", "entry missing"])

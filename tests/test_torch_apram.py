@@ -158,12 +158,14 @@ def test_bipartite_stream_equals_reference():
 
 def test_pin_entry_points_at_both_state_widths():
     """The port's matrix on the reference's conformance graph (RMAT scale
-    7, window 64, tile 32): skipper, skipper_match's plain backend and the
-    b-matching at u8 and legacy_i32, and sgmm, each a reachable trace."""
+    7, window 64, tile 32): skipper, skipper_match's plain backend, the
+    b-matching, distributed_skipper and the chaos-recovered skipper_match
+    at u8 and legacy_i32, and sgmm, each a reachable trace."""
     g = rmat_graph(7, 2, seed=3)
     out = pt.pin_entry_points(g, window=64, tile_size=32, device="cpu")
     expected = {f"{entry}@{spec}"
-                for entry in ("skipper", "skipper_match_torch", "bmatch")
+                for entry in ("skipper", "skipper_match_torch", "bmatch",
+                              "distributed", "chaos_recover")
                 for spec in ("u8", "legacy_i32")} | {"sgmm"}
     assert set(out) == expected
     for name, trace in out.items():
@@ -172,9 +174,27 @@ def test_pin_entry_points_at_both_state_widths():
 
 @pytest.mark.parametrize("row", ["include_distributed", "include_chaos"])
 def test_unported_rows_raise(row):
-    g = rmat_graph(5, 2, seed=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
-        pt.pin_entry_points(g, device="cpu", **{row: True})
+    """The reference's last two rows, once unported (they raised), now run:
+    each row's pinned traces equal the reference's rows on the same graph,
+    at both widths, and turning the row off drops it."""
+    jg = jgen.rmat_graph(7, 2, seed=3)
+    g = edges_from_arrays(np.asarray(jg.u), np.asarray(jg.v),
+                          jg.num_vertices)
+    other = ({"include_distributed", "include_chaos"} - {row}).pop()
+    kw = dict(window=64, tile_size=32, **{row: True, other: False})
+    got = pt.pin_entry_points(g, device="cpu", **kw)
+    want = jt.pin_entry_points(jg, include_pallas=False, **kw)
+    prefix = {"include_distributed": "distributed",
+              "include_chaos": "chaos_recover"}[row]
+    rows = sorted(k for k in got if k.startswith(prefix + "@"))
+    assert rows == [f"{prefix}@legacy_i32", f"{prefix}@u8"]
+    assert rows == sorted(k for k in want if k.startswith(prefix + "@"))
+    for name in rows:
+        np.testing.assert_array_equal(got[name].matched, want[name].matched)
+        assert got[name].num_matches == want[name].num_matches
+    off = pt.pin_entry_points(g, device="cpu", window=64, tile_size=32,
+                              **{row: False, other: False})
+    assert not any(k.startswith(prefix + "@") for k in off)
 
 
 # ------------------------------------------------------------ fuzz corpus

@@ -635,12 +635,13 @@ def test_raw_stream_instances_equal_plain(cuda_device, spec, instance, tile):
     state = torch.zeros(n, dtype=s.at_rest_dtype)
     matched, conflicts = ref.ref_skipper(state, ut, vt, vector_rounds=2)
     kernel.reset_launch_counts()
-    got = tiles_on_card(ut.to(cuda_device), vt.to(cuda_device), n,
+    row = torch.zeros(n, dtype=s.vmem_dtype, device=cuda_device)
+    got = tiles_on_card(row, ut.to(cuda_device), vt.to(cuda_device),
                         vector_rounds=2, spec=s, instance=instance)
     torch.cuda.synchronize()
     assert kernel.launch_counts()[kernel.BOUNDARY_ASYNC] == 1
-    _same((got[0].cpu(), state), (got[1].cpu(), matched),
-          (got[2].cpu(), conflicts))
+    _same((row.cpu().to(s.at_rest_dtype), state), (got[0].cpu(), matched),
+          (got[1].cpu().to(torch.int32), conflicts))
     assert kernel.boundary_instance(1 << 22, 512) == "device"
 
 
@@ -689,8 +690,101 @@ def test_pin_entry_points_on_card(cuda_device):
     out = pin_entry_points(rmat_graph(7, 2, seed=3), window=64,
                            tile_size=32, device=cuda_device)
     assert {"skipper_match_cuda@u8", "skipper_match_cuda@legacy_i32",
-            "skipper@u8", "skipper@legacy_i32", "sgmm"} <= set(out)
-    assert len(out) == 9
+            "skipper@u8", "skipper@legacy_i32", "sgmm",
+            "distributed@u8", "chaos_recover@legacy_i32"} <= set(out)
+    assert len(out) == 13
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])
+@pytest.mark.parametrize("tile", [64, 256, 1024])
+@pytest.mark.parametrize("vector_rounds", [0, 2])
+def test_stream_pass_kernel_equals_plain(cuda_device, dtype, tile,
+                                         vector_rounds):
+    """``engine.stream_pass`` on the card (the global-tier kernel as one
+    state row, in place, at the state's width; invalid slots written as
+    (-1, -1) first) against its plain version, from a state with MCHD
+    cells, on a slab with self-loops, half-invalid slots and padding."""
+    from repro_torch.core import engine
+
+    gen = torch.Generator().manual_seed(tile + vector_rounds)
+    n, slab = 3000, 6 * tile
+    u = torch.randint(0, n, (slab,), generator=gen, dtype=torch.int32)
+    v = torch.randint(0, n, (slab,), generator=gen, dtype=torch.int32)
+    v = torch.where(torch.rand(slab, generator=gen) < 0.05, u, v)
+    u = torch.where(torch.rand(slab, generator=gen) < 0.05, -1, u)
+    st0 = torch.where(torch.rand(n, generator=gen) < 0.1, 2, 0).to(dtype)
+    kw = dict(n=n, vector_rounds=vector_rounds, tile_size=tile)
+    sk, sp = st0.to(cuda_device), st0.to(cuda_device)
+    kernel.reset_launch_counts()
+    out_k = engine.stream_pass(sk, u.to(cuda_device), v.to(cuda_device),
+                               backend="cuda", **kw)
+    launched = kernel.launch_counts()
+    out_p = engine.stream_pass(sp, u.to(cuda_device), v.to(cuda_device),
+                               backend="torch", **kw)
+    assert out_k[0] is sk and sk.dtype == dtype
+    _same(*zip(out_k, out_p))
+    wide = tile > kernel.BOUNDARY_ASYNC_MAX_THREADS
+    assert launched[kernel.BOUNDARY if wide else kernel.BOUNDARY_ASYNC] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", SPECS)
+@pytest.mark.parametrize("sharded", [False, True])
+def test_distributed_kernels_equal_plain(cuda_device, spec, sharded):
+    """``distributed_skipper`` on one rank, clean and under each fault site
+    with ``on_fault="recover"``: the kernels against the plain path on the
+    same CUDA tensors (mask, state, counters, every stats field)."""
+    from repro_torch.core.distributed import distributed_skipper
+    from repro_torch.core.faults import FaultPlan
+
+    g = rmat_graph(10, 8, seed=5).to(cuda_device)
+    kw = dict(block_size=128, tile_size=64, spec=getattr(StateSpec, spec)(),
+              device=cuda_device)
+    if sharded:
+        kw.update(window=256, reorder="degree")
+    plans = [None] + [FaultPlan(seed=7, **p) for p in (
+        dict(drop_proposals=0.3), dict(truncate_retry=0),
+        dict(corrupt_state=0.05), dict(lose_shard=0), dict(skip_drain=True))]
+    fields = ("proposals", "lost_proposals", "requeued", "retry_overflow",
+              "undrained", "gathered_bytes", "recovery_attempts",
+              "residual_edges", "recovered_matches", "corrupted_cells")
+    for plan in plans:
+        pol = dict(faults=plan, on_fault="recover", verify=True) \
+            if plan is not None else {}
+        rk, sk = distributed_skipper(g, backend="cuda", **kw, **pol)
+        rp, sp = distributed_skipper(g, backend="torch", **kw, **pol)
+        _same((rk.match_mask, rp.match_mask), (rk.state, rp.state))
+        for f in ("edge_reads", "state_loads", "state_stores"):
+            _same((getattr(rk.counters, f), getattr(rp.counters, f)))
+        for f in fields:
+            assert int(torch.as_tensor(getattr(sk, f))) == int(
+                torch.as_tensor(getattr(sp, f))), (plan, f)
+        assert_matching(g, rk.match_mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", SPECS)
+def test_skipper_match_faults_kernels_equal_plain(cuda_device, spec):
+    """``skipper_match`` under each site live at one rank, and combined,
+    with ``"report"`` and ``"recover"``: kernels against plain."""
+    from repro_torch.core.faults import FaultPlan
+
+    g = rmat_graph(11, 8, seed=4)
+    kw = dict(window=256, tile_size=64, reorder="degree", with_conflicts=True,
+              spec=getattr(StateSpec, spec)(), device=cuda_device)
+    for plan in (dict(drop_proposals=0.3), dict(corrupt_state=0.05),
+                 dict(lose_shard=0),
+                 dict(drop_proposals=0.25, corrupt_state=0.05, lose_shard=1)):
+        for pol in ("report", "recover"):
+            fp = FaultPlan(seed=7, **plan)
+            rk, ck, repk = skipper_match(g, backend="cuda", faults=fp,
+                                         on_fault=pol, **kw)
+            rp, cp, repp = skipper_match(g, backend="torch", faults=fp,
+                                         on_fault=pol, **kw)
+            _same((rk.match_mask, rp.match_mask), (rk.state, rp.state),
+                  (ck, cp))
+            assert repk == repp
 
 
 @pytest.mark.cuda
@@ -713,7 +807,7 @@ def test_analyzer_clean_on_built_kernels(cuda_device):
 
     report = run_analysis()
     assert report.clean, report.render()
-    assert len(report.targets_analyzed) == 40
+    assert len(report.targets_analyzed) == 42
 
 
 @pytest.mark.cuda

@@ -227,8 +227,10 @@ def test_one_row_global_tier_equals_ref_skipper(gname, spec):
     matched, conflicts = ref.ref_skipper(state, ut, vt, vector_rounds=2)
     kernel.reset_launch_counts()
     for instance in (None,) + kernel.INSTANCES:
-        got = tiles_on_card(ut, vt, n, vector_rounds=2, spec=s,
+        row = torch.zeros(n, dtype=s.vmem_dtype)
+        got = tiles_on_card(row, ut, vt, vector_rounds=2, spec=s,
                             instance=instance)
+        got = (row.to(s.at_rest_dtype), got[0], got[1].to(torch.int32))
         for a, b in zip(got, (state, matched, conflicts)):
             assert a.dtype == b.dtype
             torch.testing.assert_close(a, b, rtol=0, atol=0)

@@ -211,11 +211,21 @@ def test_verify_raises_on_a_bad_result():
 
 
 def test_faults_not_ported():
+    """Fault injection is ported now (``tests/test_torch_faults.py`` holds
+    it against the reference): an inactive plan and ``"report"`` on a
+    clean run leave the result as it was, ``"recover"`` adds nothing, and
+    an unknown policy still raises."""
+    from repro_torch.core.faults import FaultPlan, RecoveryReport
+
     _, tg = _graph("star")
-    for kw in ({"faults": object()}, {"on_fault": "recover"},
+    base = skipper_match(tg, device="cpu")
+    for kw in ({"faults": FaultPlan()}, {"on_fault": "recover"},
                {"on_fault": "report"}):
-        with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-            skipper_match(tg, device="cpu", **kw)
+        out = skipper_match(tg, device="cpu", **kw)
+        r = out[0] if isinstance(out, tuple) else out
+        assert torch.equal(r.match_mask, base.match_mask), kw
+        if isinstance(out, tuple):
+            assert out[1] == RecoveryReport()
     with pytest.raises(ValueError, match="on_fault"):
         skipper_match(tg, device="cpu", on_fault="ignore")
 

@@ -141,7 +141,33 @@ Phases (any failure raises and exits non-zero):
    the decode time; request 0's tokens must be the same in both. Eight
    decode steps are then traced with ``torch.profiler`` for the device's
    busy share and the kernels that take its time.
-7. A ``{"kernels": [...]}`` line (the canaries with ``"status":
+7. Training. (a) One f32 ``train_step`` of the llama3.2-1b and
+   granite-moe smoke configs on the card against the port's CPU step on
+   the same weights and batch: loss and grad norm within 1e-4 relative,
+   the moments within 1e-4, each parameter within 1e-4 plus what a
+   gradient error of 1e-4 moves AdamW's first update. (c)
+   granite-moe-3b-a800m at full width and depth (bf16, Skipper router,
+   remat, seed 0, learning rate 1e-4) trains 4 steps through the train
+   path's ``TrainConfig``, step function and batches, as
+   ``python -m repro_torch.launch.train --arch granite-moe-3b-a800m
+   --steps 4 --batch 2 --seq 2048 --lr 1e-4`` runs them
+   (``DataConfig(seq_len=2048, batch_per_host=2)``: 4,096 packed
+   tokens a step, one routing group), the launch counts reset just
+   before (the packer's global-tier kernel must launch once a step): the
+   loss and grad norm finite at every step, the last loss below the
+   first, and at the first step ``chunked_ce`` within 1e-3 of
+   ``cross_entropy`` on the whole logits of the same forward; step ms
+   (host clock ending in a sync), tokens/s, ``bmatch_assign``'s share of
+   a step (CUDA event pairs), peak device memory, and the last step
+   traced with ``torch.profiler``. (b) At every step the card's packed
+   rows equal the CPU packer's, and the step's global-tier launch equals
+   ``ref.ref_skipper`` on the same tiles bit for bit (mask, state,
+   conflicts). (d) granite at full width and 2 layers: two steps, an
+   asynchronous save, a restore into a fresh model (parameters and both
+   moments bit-equal to the live ones), and the next step from both
+   (loss within 1e-4). (e) The packer's kernel timed beside
+   ``ref_skipper`` on the last step's tiles for the kernels line.
+8. A ``{"kernels": [...]}`` line (the canaries with ``"status":
    "canary"``), the nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -1966,24 +1992,31 @@ class Recorder:
         return False
 
 
-class BmatchTimer:
-    """Test hook for the timed serving run: swaps ``moe.bmatch_assign`` for
-    a wrapper that records a CUDA event before and after each decode-step
-    call (one token), with no sync and no copy (two event records a call
-    are its whole cost), and puts the original back on exit. ``seconds``
-    sums the device-timeline spans of the calls once the run has ended."""
+def decode_call(kw) -> bool:
+    """A ``bmatch_assign`` call of a decode step (one token)."""
+    return kw["num_tokens"] == 1
 
-    def __init__(self):
+
+class BmatchTimer:
+    """Test hook for a timed run: swaps ``moe.bmatch_assign`` for a wrapper
+    that records a CUDA event before and after each call that ``select``
+    picks from its keywords (by default the decode steps' calls, one
+    token), with no sync and no copy (two event records a call are its
+    whole cost), and puts the original back on exit. ``seconds`` sums the
+    device-timeline spans of the calls once the run has ended."""
+
+    def __init__(self, select=decode_call):
         from repro_torch.models import moe
 
         self.moe = moe
+        self.select = select
         self.events = []
 
     def __enter__(self):
         self.saved = self.moe.bmatch_assign
 
         def wrapped(token_ids, expert_ids, **kw):
-            if kw["num_tokens"] != 1:
+            if not self.select(kw):
                 return self.saved(token_ids, expert_ids, **kw)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -2136,6 +2169,431 @@ def phase_serve(dev, seed: int):
         "as in the JAX package)")
 
 
+# ---------------------------------------------------------------- phase 7 --
+#: the smoke configs whose train step on the card is held against the
+#: port's CPU step, and the tolerance (relative to each leaf's largest
+#: magnitude): both run f32 (TF32 off) and sum in other orders, a few 1e-7
+#: apart on the CPU against the JAX package
+TRAIN_SMOKE = ("llama3.2-1b", "granite-moe-3b-a800m")
+TRAIN_TOL = 1e-4
+#: the full-width training cell: granite-moe-3b-a800m, 4 steps of 2 rows
+#: of 2048 tokens (one routing group of GROUP_TOKENS), seed 0
+TRAIN_ARCH = "granite-moe-3b-a800m"
+TRAIN_STEPS = 4
+TRAIN_ROWS, TRAIN_SEQ = 2, 2048
+#: the cell's learning rate. At the reference's default, 3e-4 after one
+#: warmup step, this cell's loss rose over the 4 steps (PERF.md,
+#: granite-train); at the smoke size the JAX package's own bf16 steps do
+#: not fall over 4 steps at 3e-4 either, and the port's equal them
+#: (tests/test_torch_train.py). Every other field of the TrainConfig is
+#: what ``launch.train.train`` builds.
+TRAIN_LR = 1e-4
+#: the step traced with torch.profiler (its time is not among the timed)
+TRAIN_TRACED = 3
+#: the checkpoint round trip: granite at full width and this depth
+CKPT_LAYERS = 2
+#: chunked against full-logits cross-entropy, bf16 at full width
+CE_TOL = 1e-3
+PACK_TILE = 256
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| over want's largest magnitude."""
+    want = want.detach().double()
+    diff = (got.detach().double() - want).abs().max()
+    return float(diff / torch.clamp(want.abs().max(), min=1e-30))
+
+
+def step_within(got: dict, want: dict, mu: dict, lr: float,
+                tcfg) -> Tuple[float, float]:
+    """Parameters after one AdamW step from zero moments against another
+    run's: within TRAIN_TOL of each leaf's largest magnitude, plus what a
+    gradient error of TRAIN_TOL (of the leaf's largest gradient) moves the
+    first update ``lr * g / (|g| + 1e-8)``, which divides each gradient by
+    its own magnitude. ``g`` (clipped) is ``mu / (1 - beta1)``. Returns
+    the largest relative error and the largest share of its bound."""
+    worst, share = 0.0, 0.0
+    for k, b in want.items():
+        a, b = got[k].detach().double().cpu(), b.detach().double().cpu()
+        g = mu[k].double().cpu() / (1 - tcfg.beta1)
+        dg = TRAIN_TOL * g.abs().max()
+        slack = lr * torch.clamp(
+            dg / (torch.clamp(g.abs() - dg, min=0.0) + 1e-8), max=2.0)
+        bound = TRAIN_TOL * b.abs().max() + slack
+        d = (a - b).abs()
+        worst = max(worst, rel_err(a, b))
+        share = max(share, float((d / bound).max()))
+        require(bool((d <= bound).all()), f"parameter {k} after one step: "
+                f"the card and the CPU disagree beyond the bound")
+    return worst, share
+
+
+def train_small(dev, seed: int) -> dict:
+    """Phase 7a: one ``train_step`` on the card against the port's CPU step
+    on the same weights and batch, on each smoke config in f32."""
+    from repro_torch.configs import TrainConfig, get_smoke_config
+    from repro_torch.launch import adapters
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+
+    out = {}
+    for arch in TRAIN_SMOKE:
+        cfg = get_smoke_config(arch)
+        tcfg = TrainConfig(total_steps=10, warmup_steps=2)
+        rng = np.random.default_rng(seed)
+        tokens = rng.integers(1, cfg.vocab_size, (2, 32)).astype(np.int32)
+        mask = rng.random((2, 32)) > 0.2
+        runs = {}
+        for d in ("cpu", dev):
+            model = adapters.init_fn(torch.Generator().manual_seed(seed),
+                                     cfg).to(d)
+            opt = adamw.init_state(dict(model.named_parameters()), tcfg)
+            batch = {"tokens": torch.from_numpy(tokens).to(d),
+                     "mask": torch.from_numpy(mask).to(d)}
+            opt, metrics = make_train_step(cfg, tcfg)(model, opt, batch)
+            runs[str(d)] = (dict(model.named_parameters()), opt,
+                            {k: float(v) for k, v in metrics.items()})
+        (p0, o0, m0), (p1, o1, m1) = runs["cpu"], runs[str(dev)]
+        loss_err = abs(m1["loss"] - m0["loss"]) / abs(m0["loss"])
+        gn_err = abs(m1["grad_norm"] - m0["grad_norm"]) / m0["grad_norm"]
+        require(loss_err <= TRAIN_TOL and gn_err <= TRAIN_TOL,
+                f"{cfg.name}: loss or grad norm on the card differs from "
+                f"the CPU ({loss_err}, {gn_err})")
+        mom = max(rel_err(a[k].cpu(), b[k])
+                  for a, b in ((o1.mu, o0.mu), (o1.nu, o0.nu)) for k in b)
+        require(mom <= TRAIN_TOL, f"{cfg.name}: moments differ ({mom})")
+        worst, share = step_within(p1, p0, o0.mu, m0["lr"], tcfg)
+        out[cfg.name] = {"loss_rel_err": loss_err, "grad_norm_rel_err":
+                         gn_err, "moments_rel_err": mom,
+                         "params_rel_err": worst,
+                         "params_share_of_bound": share}
+        log(f"train step {cfg.name}: card and CPU agree (loss "
+            f"{m1['loss']:.6f} / {m0['loss']:.6f}, grad norm rel "
+            f"{gn_err:.2e}, moments {mom:.2e}, parameters {worst:.2e}, "
+            f"{share:.3f} of the bound)")
+    return out
+
+
+def packer_kernel_check(step: int, dcfg, dev):
+    """Phase 7b: the packer's global-tier launch on ``step``'s edges
+    against ``ref.ref_skipper`` on the same tiles, bit for bit (mask,
+    state, conflicts). Returns ``(ut, vt, n, err)``: ``err`` is the
+    largest difference from ``ref_skipper``."""
+    from repro_torch.core.skipper import stream_tiles
+    from repro_torch.data import documents_for_step
+    from repro_torch.data.packing import _candidate_edges
+    from repro_torch.graphs.types import EdgeList
+    from repro_torch.kernels.skipper_match import ref
+
+    # the candidate edges of the step's documents, as pack_documents
+    # builds them
+    docs = documents_for_step(step, dcfg, dcfg.batch_per_host * 2)
+    u, v = _candidate_edges(np.asarray([len(d) for d in docs]),
+                            dcfg.seq_len)
+    n = len(docs)
+    e = EdgeList(torch.from_numpy(u).to(dev), torch.from_numpy(v).to(dev), n)
+    ut, vt = stream_tiles(e, PACK_TILE)
+    row, matched, conflicts = raw_kernel(ut, vt, n, None)
+    st = torch.zeros(n, dtype=torch.uint8, device=dev)
+    want = (st, *ref.ref_skipper(st, ut, vt))
+    err = max_err((row, want[0]), (matched, want[1]), (conflicts, want[2]))
+    require(err == 0, f"packer step {step}: the global-tier launch differs "
+            f"from ref_skipper ({err})")
+    return ut, vt, n, err
+
+
+def ce_check(model, batch, cfg, tcfg) -> dict:
+    """At the first step: ``chunked_ce`` against ``cross_entropy`` on the
+    whole logits of the same forward (no grad)."""
+    from repro_torch.launch import adapters
+    from repro_torch.launch.steps import chunked_ce, cross_entropy
+    from repro_torch.models import layers as L
+
+    with torch.no_grad():
+        hidden, head, tr, targets, mask = adapters.train_hidden(
+            model, batch, cfg)
+        chunked = float(chunked_ce(hidden, head, tr, targets, mask,
+                                   tcfg.z_loss))
+        full = float(cross_entropy(L.lm_head(hidden, head, transpose=tr),
+                                   targets, mask, tcfg.z_loss))
+    err = abs(chunked - full) / abs(full)
+    require(err <= CE_TOL, f"chunked_ce {chunked} and cross_entropy {full} "
+            f"differ by {err:.2e} (over {CE_TOL})")
+    return {"chunked_ce": chunked, "full_logits_ce": full,
+            "ce_rel_err": err}
+
+
+def profile_train_step(step_fn, model, opt, batch) -> Tuple[object, dict]:
+    """One train step traced with ``torch.profiler`` (device activity
+    only: the step launches about 700,000 kernels, and host events would
+    slow it further): the device's busy time, its share of the traced wall
+    time (the tracing slows the host, so this share is a floor) and the
+    kernels that take its time. The raw events are summed directly:
+    ``key_averages`` takes minutes over a trace this long."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        opt, metrics = step_fn(model, opt, batch)
+        torch.cuda.synchronize()
+        wall_ns = (time.perf_counter() - t0) * 1e9
+    t0 = time.perf_counter()
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            ns, n = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (ns + e.duration_ns(), n + 1)
+    rows = sorted(((ns, k, n) for k, (ns, n) in by_name.items()),
+                  reverse=True)
+    out = {"traced_step_ms": wall_ns / 1e6,
+           "trace_summary_s": time.perf_counter() - t0}
+    if not rows:
+        log("profiler: no device time recorded; busy share not measured")
+        return (opt, metrics), dict(out, device_busy_share=None)
+    busy_ns = sum(r[0] for r in rows)
+    return (opt, metrics), dict(
+        out, device_busy_ms=busy_ns / 1e6,
+        device_busy_share=busy_ns / wall_ns,
+        device_launches=sum(r[2] for r in rows),
+        top_device_kernels=[{"name": k[:80], "ms": ns / 1e6, "launches": n}
+                            for ns, k, n in rows[:8]])
+
+
+def train_full(dev) -> Tuple[dict, dict]:
+    """Phase 7c (with 7b at every step): granite-moe-3b-a800m at full width
+    and depth trains TRAIN_STEPS steps through the train path's own
+    ``TrainConfig``, step function and batches, the launch counts reset
+    just before. Returns ``(metrics, packer)``: the packer's tiles, launch
+    count and largest difference from ``ref_skipper`` for the kernels
+    line."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, batch_for_step
+    from repro_torch.kernels.skipper_match import kernel
+    from repro_torch.launch import adapters
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import build_batch, train_config
+    from repro_torch.optim import adamw
+
+    cfg = get_config(TRAIN_ARCH)
+    require(cfg.dtype == "bfloat16" and cfg.remat
+            and cfg.moe_router == "skipper", f"{TRAIN_ARCH}: not bf16, "
+            "remat and the Skipper router")
+    # as launch.train.train builds them
+    tcfg = train_config(TRAIN_STEPS, learning_rate=TRAIN_LR)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      batch_per_host=TRAIN_ROWS)
+    t0 = time.perf_counter()
+    model = adapters.init_fn(torch.Generator(device=dev).manual_seed(
+        tcfg.seed), cfg)
+    opt = adamw.init_state(dict(model.named_parameters()), tcfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    step_fn = make_train_step(cfg, tcfg)
+    metrics = {"arch": TRAIN_ARCH, "layers": cfg.num_layers,
+               "d_model": cfg.d_model, "experts": cfg.num_experts,
+               "top_k": cfg.num_experts_per_tok, "dtype": cfg.dtype,
+               "remat": cfg.remat, "router": cfg.moe_router,
+               "params": n_params, "rows": TRAIN_ROWS, "seq": TRAIN_SEQ,
+               "tokens_per_step": TRAIN_ROWS * TRAIN_SEQ, "init_s": init_s}
+    losses, gnorms, step_ms, bmatch_ms, packs = [], [], [], [], []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernel.reset_launch_counts()
+    for step in range(TRAIN_STEPS):
+        want = batch_for_step(step, dcfg, device="cpu")
+        if step == TRAIN_TRACED:
+            batch = build_batch(cfg, dcfg, step, dev)
+            (opt, m), prof = profile_train_step(step_fn, model, opt, batch)
+            metrics.update(prof)
+        else:
+            with BmatchTimer(select=lambda kw: True) as timer:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                batch = build_batch(cfg, dcfg, step, dev)
+                if step == 0:
+                    # outside the timed step: the same forward, no grad
+                    t_ce = time.perf_counter()
+                    metrics.update(ce_check(model, batch, cfg, tcfg))
+                    t0 += time.perf_counter() - t_ce
+                opt, m = step_fn(model, opt, batch)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            bmatch_ms.append(timer.seconds() * 1e3)
+            if step == 1:      # step 0 also ran the cross-entropy check
+                metrics["bmatch_calls_per_step"] = len(timer.events)
+        got = (batch["tokens"].cpu().numpy(), batch["mask"].cpu().numpy())
+        require(np.array_equal(got[0], want[0])
+                and np.array_equal(got[1], want[1]),
+                f"packer step {step}: the card's rows differ from the CPU's")
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        require(np.isfinite(losses[-1]) and np.isfinite(gnorms[-1]),
+                f"step {step}: loss {losses[-1]}, grad norm {gnorms[-1]}")
+        packs.append(float(batch["mask"].float().mean()))
+        log(f"train step {step}: loss {losses[-1]:.4f} grad norm "
+            f"{gnorms[-1]:.3f} lr {float(m['lr']):.3e}"
+            + (f", {step_ms[-1]:.1f} ms" if step != TRAIN_TRACED else
+               " (traced)"))
+    launches = kernel.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    require(launches[ASYNC] == TRAIN_STEPS, f"the packer's global tier "
+            f"launched {launches[ASYNC]} times in {TRAIN_STEPS} steps")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    require(abs(metrics["chunked_ce"] - losses[0]) / losses[0] <= CE_TOL,
+            "the first step's loss is not its chunked cross-entropy")
+    # 7b: each step's packer launch against ref_skipper (outside the run)
+    tiles = [packer_kernel_check(step, dcfg, dev)
+             for step in range(TRAIN_STEPS)]
+    log(f"packer: {TRAIN_STEPS} steps' global-tier launches bit-equal to "
+        "ref_skipper and the card's rows to the CPU's")
+    timed = step_ms[1:]          # the first step warms up
+    metrics.update({
+        "losses": losses, "grad_norms": gnorms, "step_ms": step_ms,
+        "step_ms_steady": sum(timed) / len(timed),
+        "tokens_per_s": TRAIN_ROWS * TRAIN_SEQ / (sum(timed) / len(timed))
+        * 1e3,
+        "bmatch_ms": bmatch_ms,
+        "bmatch_share": sum(bmatch_ms[1:]) / sum(timed),
+        "learning_rate": tcfg.learning_rate, "seed": tcfg.seed,
+        "peak_device_bytes": peak, "packing_efficiency": packs,
+        "launch_counts": launches})
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    return metrics, {"tiles": [t[:3] for t in tiles],
+                     "max_abs_err": max(t[3] for t in tiles),
+                     "launches": launches[ASYNC]}
+
+
+def train_checkpoint(dev, seed: int) -> dict:
+    """Phase 7d: granite at full width and CKPT_LAYERS layers, two steps,
+    an asynchronous save, a restore into a fresh model (parameters and
+    both moments bit-equal to the live ones), then the next step from both
+    (the loss within TRAIN_TOL; parameters and moments compared)."""
+    import tempfile
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.launch import adapters
+    from repro_torch.launch import train as T
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=CKPT_LAYERS)
+    tcfg = TrainConfig(total_steps=TRAIN_STEPS, warmup_steps=1, seed=seed)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      batch_per_host=TRAIN_ROWS)
+    step_fn = make_train_step(cfg, tcfg)
+
+    def fresh(s):
+        model = adapters.init_fn(torch.Generator(device=dev).manual_seed(s),
+                                 cfg)
+        return model, adamw.init_state(dict(model.named_parameters()), tcfg)
+
+    live, opt = fresh(seed)
+    for step in range(2):
+        opt, _ = step_fn(live, opt, T.build_batch(cfg, dcfg, step, dev))
+    out = {"layers": CKPT_LAYERS,
+           "params": sum(p.numel() for p in live.parameters())}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        ck = Checkpointer(d)
+        t0 = time.perf_counter()
+        T.save(ck, 2, live, opt, cfg)
+        out["save_host_copy_s"] = time.perf_counter() - t0
+        ck.wait()
+        out["save_s"] = time.perf_counter() - t0
+        out["bytes_on_disk"] = sum(f.stat().st_size
+                                   for f in Path(d).rglob("*") if f.is_file())
+        restored, ropt = fresh(seed + 1)
+        t0 = time.perf_counter()
+        meta = T.restore(ck, None, restored, ropt, cfg)
+        torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - t0
+    require(meta["step"] == 2 and int(ropt.step) == int(opt.step) == 2,
+            "restore: wrong step")
+    live_p = dict(live.named_parameters())
+    for k, p in restored.named_parameters():
+        for a, b, what in ((p, live_p[k], "parameter"),
+                           (ropt.mu[k], opt.mu[k], "first moment"),
+                           (ropt.nu[k], opt.nu[k], "second moment")):
+            require(a.dtype == b.dtype and torch.equal(a, b),
+                    f"restore: {what} {k} is not bit-equal to the live one")
+    batch = T.build_batch(cfg, dcfg, 2, dev)
+    opt, m_live = step_fn(live, opt, batch)
+    ropt, m_rest = step_fn(restored, ropt, batch)
+    loss_err = abs(float(m_rest["loss"]) - float(m_live["loss"])) / abs(
+        float(m_live["loss"]))
+    require(loss_err <= TRAIN_TOL, f"the step after the restore differs "
+            f"from the live one ({loss_err})")
+    diffs = [rel_err(a, b) for a, b in zip(restored.parameters(),
+                                           live.parameters())]
+    out.update({"next_loss_rel_err": loss_err,
+                "next_step_params_rel_err": max(diffs),
+                "next_step_bit_equal": all(d == 0 for d in diffs)})
+    log(f"checkpoint: {out['bytes_on_disk']:,} bytes saved in "
+        f"{out['save_s']:.1f} s, restored in {out['restore_s']:.1f} s, "
+        "parameters and both moments bit-equal; next step loss rel "
+        f"{loss_err:.2e}, parameters rel {max(diffs):.2e}")
+    del live, restored, opt, ropt
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train(dev, seed: int) -> dict:
+    """Phase 7: the training path. Returns the kernels-line entry of the
+    global tier on the packer path."""
+    from repro_torch.core.statespec import StateSpec
+    from repro_torch.kernels.skipper_match import kernel, ref
+    from repro_torch.roofline import h100
+
+    t_phase = time.perf_counter()
+    small = train_small(dev, seed)
+    parts = {"smoke_s": time.perf_counter() - t_phase}
+    metrics, packer = train_full(dev)
+    parts["full_width_s"] = time.perf_counter() - t_phase - sum(
+        parts.values())
+    ckpt = train_checkpoint(dev, seed)
+    parts["checkpoint_s"] = time.perf_counter() - t_phase - sum(
+        parts.values())
+    # the packer's kernel alone and its plain version, on the last step's
+    # tiles (launches here are not the run's)
+    ut, vt, n = packer["tiles"][-1]
+    k_ms, _ = cuda_time(lambda: raw_kernel(ut, vt, n, None), reps=20)
+
+    def plain():
+        st = torch.zeros(n, dtype=torch.uint8, device=dev)
+        return ref.ref_skipper(st, ut, vt)
+
+    plain_ms, _ = cuda_time(plain, reps=3)
+    spec = StateSpec.u8()
+    bound = h100.stream_bytes(ut.shape[0], ut.shape[1], n, spec)
+    if metrics.get("device_busy_ms") is not None:
+        # the traced step's device time over an untraced step's wall time
+        metrics["device_busy_share_of_steady_step"] = (
+            metrics["device_busy_ms"] / metrics["step_ms_steady"])
+    metrics.update({"smoke_steps": small, "checkpoint": ckpt,
+                    "packer_tiles": int(ut.shape[0]), "packer_vertices": n,
+                    "packer_edges": [int((t[0] >= 0).sum())
+                                     for t in packer["tiles"]],
+                    "packer_kernel_ms": k_ms, "packer_plain_ms": plain_ms,
+                    "parts": parts,
+                    "phase_s": time.perf_counter() - t_phase})
+    log("train metrics: " + json.dumps(metrics))
+    return {"name": ASYNC, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[ASYNC],
+            "path": "pack_documents (train data, via skipper)",
+            "launches": packer["launches"], "launches_per_step": 1,
+            "max_abs_err": packer["max_abs_err"], "ms": k_ms,
+            "plain_ms": plain_ms,
+            "plain_case": f"ref_skipper on the card, the last step's "
+                          f"{ut.shape[0]} tile(s) of {ut.shape[1]} over "
+                          f"{n} documents",
+            "bound_ms": h100.bytes_ms(bound), "bound_by": "bytes",
+            "library_ms": None}
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2215,6 +2673,7 @@ def main() -> int:
     kernels += phase_analysis(dev)
     kernels += phase_flash(dev, args.seed)
     phase_serve(dev, args.seed)
+    kernels.append(phase_train(dev, args.seed))
     log(f"chip_smoke: {time.perf_counter() - start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -1,5 +1,7 @@
 """Model configs of the port (its own copy of ``repro.configs``)."""
-from repro_torch.configs.base import ModelConfig, ShapeConfig, SHAPES
+from repro_torch.configs.base import (
+    ModelConfig, ShapeConfig, SHAPES, TrainConfig,
+)
 from repro_torch.configs.registry import (
     ARCH_IDS,
     NOT_PORTED,
@@ -9,6 +11,6 @@ from repro_torch.configs.registry import (
 )
 
 __all__ = [
-    "ModelConfig", "ShapeConfig", "SHAPES",
+    "ModelConfig", "ShapeConfig", "SHAPES", "TrainConfig",
     "ARCH_IDS", "NOT_PORTED", "get_config", "get_smoke_config", "get_shape",
 ]

@@ -1,7 +1,6 @@
-"""Config schema: model architecture and input shapes (port of
+"""Config schema: model architecture, input shapes and training (port of
 ``repro.configs.base``; the port keeps its own copy and imports nothing of
-the JAX package). ``TrainConfig`` waits for the train path (ROADMAP queue
-1, item 12)."""
+the JAX package)."""
 from __future__ import annotations
 
 import dataclasses
@@ -85,3 +84,19 @@ SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
     "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip: float = 1.0
+    microbatches: int = 1        # gradient accumulation
+    z_loss: float = 1e-4
+    seed: int = 0
+    checkpoint_every: int = 100
+    grad_compression: str = "none"   # none | bf16 (compressed cross-device psum)

@@ -2,6 +2,8 @@
 decoder-only ``dense`` and ``moe`` families:
 
   init_fn(gen, cfg)                      -> model
+  train_hidden(model, batch, cfg)        -> (hidden, head, transpose_head,
+                                             targets, loss_mask)
   prefill_fn(model, batch, cfg, max_len) -> (logits, cache)
   decode_fn(model, cache, tokens, cfg)   -> (logits, cache)
   init_cache_fn(model, batch, max_len)   -> cache
@@ -32,6 +34,26 @@ def init_fn(gen: torch.Generator, cfg: ModelConfig) -> Transformer:
     """A model with weights drawn from ``gen``, on ``gen``'s device."""
     _check(cfg)
     return Transformer(cfg, gen)
+
+
+def _shifted(tokens: torch.Tensor, mask: torch.Tensor):
+    """Next-token targets aligned with the unsliced logits: ``target[t] =
+    token[t+1]``; the final position is masked out."""
+    targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                        dim=1)
+    tmask = torch.cat([mask[:, 1:], torch.zeros_like(mask[:, :1])], dim=1)
+    return targets, tmask
+
+
+def train_hidden(model: Transformer, batch, cfg: ModelConfig):
+    """-> ``(hidden [B, S, D], head weight, transpose_head, targets,
+    loss_mask)``. The loss path never builds the whole ``[B, S, V]``
+    logits: the head projection and the loss run chunked over the
+    sequence (``steps.chunked_ce``)."""
+    _check(cfg)
+    hidden, head = model(batch["tokens"], return_hidden=True)
+    targets, tmask = _shifted(batch["tokens"], batch["mask"])
+    return hidden, head, False, targets, tmask
 
 
 def prefill_fn(model: Transformer, batch, cfg: ModelConfig,

@@ -9,7 +9,9 @@ block ``i``'s parameter (``interop.params_from_arrays``).
 
 Three entry points, as in the reference:
 
-* ``forward(tokens)``         -> logits ``[B, S, V]``
+* ``forward(tokens)``         -> logits ``[B, S, V]``, or ``(hidden, head)``
+  after the final norm with ``return_hidden=True`` (the training loss
+  path, which never builds the whole logits)
 * ``prefill(tokens, max_len)`` -> ``(logits, cache)``, the KV cache filled;
   a rolling window-sized cache when ``cfg.sliding_window > 0``
 * ``decode_step(cache, tokens)`` -> ``(logits [B, 1, V], cache)``
@@ -21,6 +23,14 @@ with ``cur`` advanced. Attention runs the plain chunked
 ``layers.gqa_attention_chunked``, as the reference's model does; the flash
 kernel is reached through its own entry point. Serving needs no remat, and
 the port runs it under ``torch.no_grad()``.
+
+Training: the weights are created frozen (``requires_grad=False``, as
+serving wants them); the train step turns their gradients on. With
+``cfg.remat`` and grad enabled, ``forward`` runs each block under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint(block)``):
+only the block's input is kept, and backward recomputes the block, the
+MoE routing included. The routing is deterministic, so the recompute
+routes every token as the forward did.
 """
 from __future__ import annotations
 
@@ -28,6 +38,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -178,19 +189,40 @@ class Transformer(nn.Module):
     def _embed(self, tokens):
         return self.embed.to(dtype_of(self.cfg))[tokens.long()]
 
+    def reference_ndims(self) -> Dict[str, int]:
+        """Each parameter's rank in the reference's pytree, where blocks
+        are stacked ``[L, ...]``: one more than the tensor's own for a
+        block's parameter (what AdamW's matrices-only decay reads)."""
+        return {k: p.dim() + k.startswith("blocks.")
+                for k, p in self.named_parameters()}
+
     # ------------------------------------------------------------- forward
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Full-sequence forward: tokens [B, S] -> logits [B, S, V]."""
+    def _block(self, x, blk, cos, sin):
+        h, _, _ = _attn_train(L.rms_norm(x, blk.norm1), blk.attn, self.cfg,
+                              cos, sin)
+        x = x + h
+        return x + _mlp(L.rms_norm(x, blk.norm2), blk.mlp, self.cfg)
+
+    def forward(self, tokens: torch.Tensor, return_hidden: bool = False):
+        """Full-sequence forward: tokens [B, S] -> logits [B, S, V]; with
+        ``return_hidden``, ``(hidden [B, S, D], head)`` after the final
+        norm, ``head`` ``[D, V]`` (``embed.T`` when the embeddings are
+        tied)."""
         x = self._embed(tokens)
         b, s, _ = x.shape
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
         cos, sin = self._rope(positions)
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            h, _, _ = _attn_train(L.rms_norm(x, blk.norm1), blk.attn,
-                                  self.cfg, cos, sin)
-            x = x + h
-            x = x + _mlp(L.rms_norm(x, blk.norm2), blk.mlp, self.cfg)
+            if remat:
+                x = checkpoint(self._block, x, blk, cos, sin,
+                               use_reentrant=False)
+            else:
+                x = self._block(x, blk, cos, sin)
+        if return_hidden:
+            head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
+            return L.rms_norm(x, self.final_norm), head
         return self._logits(x)
 
     # --------------------------------------------------------------- cache

@@ -867,3 +867,125 @@ def test_canary_equals_its_plain_version(cuda_device, name):
     want = mutations.plain(name, sp, *args)
     torch.cuda.synchronize()
     _same((sk, sp), *zip(got, want))
+
+
+# ---------------------------------------------------------- training path --
+def _train_step_on(device, arch, seed=0):
+    from repro_torch.configs import TrainConfig, get_smoke_config
+    from repro_torch.launch import adapters
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+
+    cfg = get_smoke_config(arch)
+    tcfg = TrainConfig(total_steps=10, warmup_steps=2)
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(1, cfg.vocab_size, (2, 32)).astype(np.int32)
+    mask = rng.random((2, 32)) > 0.2
+    model = adapters.init_fn(torch.Generator().manual_seed(seed),
+                             cfg).to(device)
+    opt = adamw.init_state(dict(model.named_parameters()), tcfg)
+    batch = {"tokens": torch.from_numpy(tokens).to(device),
+             "mask": torch.from_numpy(mask).to(device)}
+    opt, metrics = make_train_step(cfg, tcfg)(model, opt, batch)
+    return (dict(model.named_parameters()), opt,
+            {k: float(v) for k, v in metrics.items()})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "granite-moe-3b-a800m"])
+def test_smoke_train_step_on_card_equals_cpu(cuda_device, arch):
+    """One f32 train step on the card against the same step on the CPU:
+    loss and grad norm within 1e-4 relative, the moments within 1e-4 of
+    each leaf's largest magnitude; the parameters within 1e-4 plus what a
+    gradient error of 1e-4 moves AdamW's first update ``lr * g / (|g| +
+    1e-8)`` (``g`` is ``mu / (1 - beta1)``)."""
+    p1, o1, m1 = _train_step_on(cuda_device, arch)
+    p0, o0, m0 = _train_step_on("cpu", arch)
+    for k in ("loss", "grad_norm"):
+        assert abs(m1[k] - m0[k]) <= 1e-4 * abs(m0[k])
+    assert m1["lr"] == m0["lr"] and m1["step"] == m0["step"] == 1
+    for k, want in p0.items():
+        for a, b in ((o1.mu[k], o0.mu[k]), (o1.nu[k], o0.nu[k])):
+            assert ((a.cpu() - b).abs().max()
+                    <= 1e-4 * b.abs().max() + 1e-30), k
+        g = o0.mu[k].double() / 0.1
+        dg = 1e-4 * g.abs().max()
+        slack = m0["lr"] * torch.clamp(
+            dg / (torch.clamp(g.abs() - dg, min=0.0) + 1e-8), max=2.0)
+        d = (p1[k].detach().cpu().double() - want.detach().double()).abs()
+        assert (d <= 1e-4 * want.detach().abs().max() + slack).all(), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,n_docs,seq_len", [(0, 4, 2048), (1, 16, 128),
+                                                 (2, 40, 256)])
+def test_pack_documents_on_card_equals_cpu(cuda_device, seed, n_docs,
+                                           seq_len):
+    """The packer on the card launches the global-tier kernel once and
+    packs the rows the CPU packs, bit for bit."""
+    from repro_torch.data import pack_documents
+
+    rng = np.random.default_rng(seed)
+    docs = [rng.integers(1, 100, size=int(n)).astype(np.int32)
+            for n in rng.integers(8, seq_len, size=n_docs)]
+    kernel.reset_launch_counts()
+    rows, mask = pack_documents(docs, n_docs // 2 + 1, seq_len,
+                                device=cuda_device)
+    assert kernel.launch_counts()[kernel.BOUNDARY_ASYNC] == 1
+    want = pack_documents(docs, n_docs // 2 + 1, seq_len, device="cpu")
+    assert np.array_equal(rows, want[0]) and np.array_equal(mask, want[1])
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_card(cuda_device, tmp_path):
+    """A bf16 smoke model and its AdamW state on the card, after one step,
+    saved asynchronously and restored into a fresh model: bit for bit."""
+    import dataclasses
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import TrainConfig, get_smoke_config
+    from repro_torch.launch import adapters
+    from repro_torch.launch import train as T
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(get_smoke_config("granite-moe-3b-a800m"),
+                              dtype="bfloat16", remat=True)
+    tcfg = TrainConfig(warmup_steps=1)
+
+    def fresh(seed):
+        m = adapters.init_fn(torch.Generator(device=cuda_device)
+                             .manual_seed(seed), cfg)
+        return m, adamw.init_state(dict(m.named_parameters()), tcfg)
+
+    live, opt = fresh(0)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+                 1, cfg.vocab_size, (2, 32)).astype(np.int32)).to(cuda_device),
+             "mask": torch.ones((2, 32), dtype=torch.bool,
+                                device=cuda_device)}
+    opt, _ = make_train_step(cfg, tcfg)(live, opt, batch)
+    ck = Checkpointer(str(tmp_path))
+    T.save(ck, 1, live, opt, cfg)
+    ck.wait()
+    restored, ropt = fresh(1)
+    assert T.restore(ck, None, restored, ropt, cfg)["step"] == 1
+    assert int(ropt.step) == 1
+    for (k, a), b in zip(restored.named_parameters(), live.parameters()):
+        assert a.device.type == "cuda" and torch.equal(a, b), k
+        assert torch.equal(ropt.mu[k], opt.mu[k])
+        assert torch.equal(ropt.nu[k], opt.nu[k])
+
+
+@pytest.mark.cuda
+def test_train_defaults_to_the_card(cuda_device):
+    """``train`` without a device runs on the card: the packer launches
+    the global-tier kernel once a step, and the losses are finite."""
+    from repro_torch.launch.train import train
+
+    kernel.reset_launch_counts()
+    # at 2048 tokens a row every step's documents have pairs to match
+    losses = train("granite-moe-3b-a800m", smoke=True, steps=3,
+                   batch_size=2, seq_len=2048, ckpt_dir=None)
+    assert len(losses) == 3 and np.isfinite(losses).all()
+    assert kernel.launch_counts()[kernel.BOUNDARY_ASYNC] == 3

@@ -82,8 +82,10 @@ def _imports(path):
             yield node.module or ""
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
-                         ids=lambda p: str(p.relative_to(ROOT)))
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
+    ROOT / "examples" / "train_lm_torch.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_names_no_jax_and_no_reference(path):
     for name in _imports(path):
         top = name.split(".")[0]

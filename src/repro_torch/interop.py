@@ -92,18 +92,79 @@ def _array(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()  # host-sync: ok
 
 
-def _names(cfg):
-    """(attention leaves, MLP leaves, top-level keys) of the reference's
-    parameter pytree for ``cfg``."""
-    attn = ["wq", "wk", "wv", "wo"]
-    if cfg.qkv_bias:
-        attn += ["bq", "bk", "bv"]
-    mlp = (["router", "experts_gate", "experts_up", "experts_down"]
-           if cfg.num_experts > 0 else ["w_gate", "w_up", "w_down"])
-    top = ["embed", "blocks", "final_norm"]
-    if not cfg.tie_embeddings:
-        top.append("lm_head")
-    return attn, mlp, top
+def _attn(prefix: str = "", bias: bool = False):
+    names = ["wq", "wk", "wv", "wo"] + (["bq", "bk", "bv"] if bias else [])
+    return {prefix + n: None for n in names}
+
+
+def _leaves(*names: str):
+    return {n: None for n in names}
+
+
+_LN = {"scale": None, "bias": None}
+_SSM_BLOCK = _leaves("norm", "in_proj", "conv_w", "conv_b", "A_log",
+                     "D_skip", "dt_bias", "gate_norm", "out_proj")
+
+
+def _skeleton(cfg):
+    """``(tree, stacked)``: the reference's parameter pytree for ``cfg`` as
+    nested dicts with ``None`` leaves, and the stacked leading dims of each
+    top-level key whose leaves stack blocks (with the config fields that
+    give them, for messages)."""
+    family = cfg.family
+    if family in ("dense", "moe", "vlm"):
+        mlp = (_leaves("router", "experts_gate", "experts_up",
+                       "experts_down")
+               if cfg.num_experts > 0 else _leaves("w_gate", "w_up",
+                                                   "w_down"))
+        tree = {"embed": None, "final_norm": None,
+                "blocks": {"attn": _attn(bias=cfg.qkv_bias), "mlp": mlp,
+                           "norm1": None, "norm2": None}}
+        stacked = {"blocks": ((cfg.num_layers,), "num_layers")}
+    elif family == "ssm":
+        tree = {"embed": None, "final_norm": None, "blocks": _SSM_BLOCK}
+        stacked = {"blocks": ((cfg.num_layers,), "num_layers")}
+    elif family == "hybrid":
+        tree = {"embed": None, "final_norm": None, "lm_head": None,
+                "ssm_blocks": _SSM_BLOCK,
+                "shared": {"attn": _attn(),
+                           "mlp": _leaves("w_gate", "w_up", "w_down"),
+                           "norm1": None, "norm2": None}}
+        period = cfg.shared_attn_period
+        stacked = {"ssm_blocks": ((cfg.num_layers // period, period),
+                                  "(num_layers // shared_attn_period, "
+                                  "shared_attn_period)")}
+    elif family == "audio":
+        mlp = _leaves("w_gate", "w_down")
+        tree = {"embed": None, "pos_embed": None, "enc_ln": _LN,
+                "dec_ln": _LN,
+                "enc_blocks": {"attn": _attn(), "mlp": mlp, "ln1": _LN,
+                               "ln2": _LN},
+                "dec_blocks": {"self_attn": _attn(),
+                               "cross_attn": _attn("cross_"), "mlp": mlp,
+                               "ln1": _LN, "ln2": _LN, "ln3": _LN}}
+        stacked = {"enc_blocks": ((cfg.encoder_layers,), "encoder_layers"),
+                   "dec_blocks": ((cfg.num_layers,), "num_layers")}
+    else:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    if family in ("dense", "moe", "vlm", "ssm") and not cfg.tie_embeddings:
+        tree["lm_head"] = None
+    return tree, stacked
+
+
+def _paths(tree, prefix=()):
+    """The path of every leaf of a skeleton, in sorted key order."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _paths(tree[k], prefix + (k,))
+        else:
+            yield prefix + (k,)
+
+
+def _port_key(path, index=()) -> str:
+    """The port's state-dict key of leaf ``path`` (at ``index`` of its
+    top-level key's stack)."""
+    return ".".join((path[0],) + tuple(map(str, index)) + path[1:])
 
 
 def _placeholder(shape, dtype: torch.dtype) -> np.ndarray:
@@ -118,40 +179,37 @@ def _placeholder(shape, dtype: torch.dtype) -> np.ndarray:
 def arrays_from_params(state: Mapping[str, torch.Tensor], cfg,
                        placeholders: bool = False) -> Dict[str, Any]:
     """The reference's parameter pytree (nested dicts of numpy arrays, block
-    leaves stacked ``[L, ...]``, bf16 as :class:`BF16Bits`) from a state
-    dict of the port's ``Transformer`` keys, on any device: the model's
-    parameters, or an AdamW moment keyed like them. The inverse of
-    :func:`params_from_arrays`. A missing or unknown key raises
-    ``ValueError``.
+    leaves stacked ``[L, ...]``, hybrid's ``[n_apps, period, ...]``, bf16
+    as :class:`BF16Bits`) from a state dict of the port's model keys, on
+    any device: the model's parameters, or an AdamW moment keyed like them.
+    The inverse of :func:`params_from_arrays`. A missing or unknown key
+    raises ``ValueError``.
 
     ``placeholders=True`` copies nothing: each leaf is an array of the
     right shape and dtype that holds no memory (what
     ``Checkpointer.restore`` reads from its like trees)."""
-    attn, mlp, top = _names(cfg)
-    block_keys = ([f"attn.{k}" for k in attn] + [f"mlp.{k}" for k in mlp]
-                  + ["norm1", "norm2"])
-    want = [k for k in top if k != "blocks"] + [
-        f"blocks.{i}.{k}" for i in range(cfg.num_layers) for k in block_keys]
+    skel, stacked = _skeleton(cfg)
+    want = []
+    for path in _paths(skel):
+        dims = stacked.get(path[0], ((), ""))[0]
+        want += [_port_key(path, i) for i in np.ndindex(*dims)]
     _expect(state, want, "state dict")
 
-    def stacked_leaf(k):
-        layers = [state[f"blocks.{i}.{k}"] for i in range(cfg.num_layers)]
+    tree: Dict[str, Any] = {}
+    for path in _paths(skel):
+        dims = stacked.get(path[0], ((), ""))[0]
+        parts = [state[_port_key(path, i)] for i in np.ndindex(*dims)]
+        shape = tuple(dims) + tuple(parts[0].shape)
         if placeholders:
-            return _placeholder((len(layers),) + tuple(layers[0].shape),
-                                layers[0].dtype)
-        return _array(torch.stack(layers))
-
-    def leaf(t):
-        return (_placeholder(tuple(t.shape), t.dtype) if placeholders
-                else _array(t))
-
-    tree: Dict[str, Any] = {k: leaf(state[k]) for k in top if k != "blocks"}
-    stacked = {k: stacked_leaf(k) for k in block_keys}
-    tree["blocks"] = {
-        "attn": {k: stacked[f"attn.{k}"] for k in attn},
-        "mlp": {k: stacked[f"mlp.{k}"] for k in mlp},
-        "norm1": stacked["norm1"], "norm2": stacked["norm2"],
-    }
+            leaf = _placeholder(shape, parts[0].dtype)
+        elif dims:
+            leaf = _array(torch.stack(parts).reshape(shape))
+        else:
+            leaf = _array(parts[0])
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
     return tree
 
 
@@ -162,29 +220,37 @@ def _expect(tree: Mapping[str, Any], keys, where: str) -> None:
                          f"missing keys {sorted(want - got)}")
 
 
+def _expect_tree(tree: Mapping[str, Any], skel, where: str) -> None:
+    """The nested dicts of ``tree`` have exactly ``skel``'s keys."""
+    _expect(tree, skel, where)
+    for k, sub in skel.items():
+        if isinstance(sub, dict):
+            if not isinstance(tree[k], Mapping):
+                raise ValueError(f"{where}['{k}'] is a leaf, not a subtree")
+            _expect_tree(tree[k], sub, f"{where}['{k}']")
+
+
 def params_from_arrays(tree: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
-    """The port's ``Transformer`` state dict (CPU tensors, for
-    ``load_state_dict``) from the reference's parameter pytree as nested
-    dicts of numpy arrays, with stacked ``[L, ...]`` block leaves (e.g.
-    ``jax.tree.map(np.asarray, repro.launch.adapters.init_fn(key, cfg))``).
-    Families ``dense`` and ``moe``. An unknown or missing key, or a leaf
-    whose leading dim is not ``cfg.num_layers``, raises ``ValueError``."""
-    attn, mlp, top = _names(cfg)
-    _expect(tree, top, "params")
-    blocks = tree["blocks"]
-    _expect(blocks, ["attn", "mlp", "norm1", "norm2"], "params['blocks']")
-    _expect(blocks["attn"], attn, "params['blocks']['attn']")
-    _expect(blocks["mlp"], mlp, "params['blocks']['mlp']")
-    stacked = {f"attn.{k}": blocks["attn"][k] for k in attn}
-    stacked.update({f"mlp.{k}": blocks["mlp"][k] for k in mlp})
-    stacked.update(norm1=blocks["norm1"], norm2=blocks["norm2"])
-    state = {name: _tensor(tree[name]) for name in top if name != "blocks"}
-    for name, leaf in stacked.items():
+    """The port's state dict (CPU tensors, for ``load_state_dict``) from the
+    reference's parameter pytree as nested dicts of numpy arrays (e.g.
+    ``jax.tree.map(np.asarray, repro.launch.adapters.init_fn(key, cfg))``),
+    for every family. An unknown or missing key, or a stacked leaf whose
+    leading dims are not its stack's (``num_layers``, ``encoder_layers``,
+    hybrid's ``(n_apps, period)``), raises ``ValueError``."""
+    skel, stacked = _skeleton(cfg)
+    _expect_tree(tree, skel, "params")
+    state: Dict[str, torch.Tensor] = {}
+    for path in _paths(skel):
+        leaf = tree
+        for k in path:
+            leaf = leaf[k]
         leaf = _tensor(leaf)
-        if leaf.dim() == 0 or leaf.shape[0] != cfg.num_layers:
-            raise ValueError(f"params['blocks'] {name}: leading dim "
-                             f"{tuple(leaf.shape)[:1]} is not num_layers="
-                             f"{cfg.num_layers}")
-        for i in range(cfg.num_layers):
-            state[f"blocks.{i}.{name}"] = leaf[i]
+        dims, names = stacked.get(path[0], ((), ""))
+        if tuple(leaf.shape[:len(dims)]) != dims:
+            where = "".join(f"['{k}']" for k in path)
+            raise ValueError(f"params{where}: leading dims "
+                             f"{tuple(leaf.shape)[:len(dims)]} are not "
+                             f"{names}={tuple(dims)}")
+        for i in np.ndindex(*dims):
+            state[_port_key(path, i)] = leaf[i] if dims else leaf
     return state

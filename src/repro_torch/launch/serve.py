@@ -5,15 +5,19 @@ A request queue feeds fixed decode slots; a sequence that finishes (EOS or
 its token budget) frees its slot, which is refilled by prefilling the next
 request. Each slot holds its own cache and decodes one token a step.
 
-Runs on the card unless ``--device cpu`` is given; without a card the
-default raises. Weights are drawn on the device itself from a
-``torch.Generator`` seeded with ``seed`` (0 from the command line).
+Serves the decoder-only families ``dense``, ``moe``, ``ssm`` and
+``hybrid``, as the reference does. Runs on the card unless ``--device
+cpu`` is given; without a card the default raises. Weights are drawn on
+the device itself from a ``torch.Generator`` seeded with ``seed`` (0 from
+the command line).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch granite-moe-3b-a800m --requests 8 --slots 4 --prompt-len 512 \\
       --max-new 32
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
+      --requests 4 --slots 2 --prompt-len 512 --max-new 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
       --smoke --device cpu --requests 4 --slots 2 --prompt-len 16 --max-new 4
 """
 from __future__ import annotations
@@ -31,6 +35,9 @@ from repro_torch.launch import adapters
 from repro_torch.launch.steps import make_serve_step
 
 EOS = 2
+#: the families served, as in the reference (the vlm and audio families
+#: need an image or audio input a request carries none of)
+SERVED = ("dense", "moe", "ssm", "hybrid")
 
 
 def _sync(device: torch.device) -> None:
@@ -49,6 +56,9 @@ def serve(arch: str, smoke: bool, num_requests: int, slots: int,
     weights are drawn from a generator seeded with ``seed`` on
     ``device``."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if cfg.family not in SERVED:
+        raise ValueError(f"{arch}: serving drives the decoder-only families "
+                         f"{SERVED}, not {cfg.family!r}")
     device = resolve_device(device, "cuda", "serve")
     rng = np.random.default_rng(seed)
     requests: List[np.ndarray] = [

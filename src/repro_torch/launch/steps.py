@@ -83,6 +83,14 @@ def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig):
     return loss_fn
 
 
+def _microbatch(key: str, v: torch.Tensor, i: int, mb: int) -> torch.Tensor:
+    """Slice ``i`` of ``mb`` of a batch entry along its batch axis: 1 for
+    the ``[3, B, S]`` M-RoPE position streams, 0 otherwise."""
+    axis = 1 if key == "mrope_positions" else 0
+    n = v.shape[axis] // mb
+    return v.narrow(axis, i * n, n)
+
+
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     """``train_step(model, opt_state, batch) -> (opt_state, metrics)``.
 
@@ -115,8 +123,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
                     for k, p in named.items()}
             lsum = 0.0
             for i in range(mb):
-                mbatch = {k: v[i * (v.shape[0] // mb):
-                               (i + 1) * (v.shape[0] // mb)]
+                mbatch = {k: _microbatch(k, v, i, mb)
                           for k, v in batch.items()}
                 loss, grads = grads_of(model, names, params, mbatch)
                 for k, g in grads.items():

@@ -15,12 +15,11 @@ default raises. Weights are drawn on the device from a ``torch.Generator``
 seeded with ``TrainConfig.seed``. One card runs the whole model: the
 reference's ``make_host_mesh`` and ``param_shardings`` have no counterpart
 here and wait for ROADMAP queue 1, items 12.3 (``parallel/``) and 12.4
-(``launch/mesh.py``). The families ``vlm`` and ``audio`` (and every family
-but ``dense`` and ``moe``) wait for item 12.2.
+(``launch/mesh.py``). Every family of the registry trains here.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train \\
-      --arch granite-moe-3b-a800m --steps 4 --batch 2 --seq 2048 --lr 1e-4
+      --arch granite-moe-3b-a800m --steps 3 --batch 2 --seq 2048 --lr 1e-4
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
       --smoke --device cpu --steps 20 --batch 4 --seq 64 --ckpt-dir ckpt
 """
@@ -41,6 +40,7 @@ from repro_torch.device import resolve_device
 from repro_torch.interop import arrays_from_params, params_from_arrays
 from repro_torch.launch import adapters
 from repro_torch.launch.steps import make_train_step
+from repro_torch.models.vlm import make_mrope_positions
 from repro_torch.optim import adamw
 
 #: the reference's checkpoint keys of ``AdamWState``'s fields (how JAX
@@ -50,14 +50,29 @@ OPT_KEYS = (".step", ".mu", ".nu")
 
 def build_batch(cfg: ModelConfig, dcfg: DataConfig, step: int,
                 device) -> Dict[str, torch.Tensor]:
-    """The batch of ``step`` on ``device``; the packer matches there."""
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.family} batches wait for the {cfg.family} family "
-            "(ROADMAP queue 1, item 12.2)")
+    """The batch of ``step`` on ``device``; the packer matches there. The
+    vlm family adds a stub image prefix (``max(4, S // 8)`` patches rounded
+    down to a square grid, N(0, 1) embeddings) and its M-RoPE positions,
+    the audio family ``encoder_frames`` N(0, 1) frames: drawn from
+    ``np.random.default_rng(step)`` as the reference draws them."""
     tokens, mask = batch_for_step(step, dcfg, device=device)
-    return {"tokens": torch.from_numpy(tokens).to(device),
-            "mask": torch.from_numpy(mask).to(device)}
+    batch = {"tokens": torch.from_numpy(tokens).to(device),
+             "mask": torch.from_numpy(mask).to(device)}
+    b, s = tokens.shape
+    if cfg.family == "vlm":
+        gh = int(np.sqrt(max(4, s // 8)))
+        n_img = gh * gh
+        rng = np.random.default_rng(step)
+        batch["image_embeds"] = torch.from_numpy(rng.normal(
+            size=(b, n_img, cfg.d_model)).astype(np.float32)).to(device)
+        batch["mrope_positions"] = make_mrope_positions(
+            b, s + n_img, n_img, (gh, gh), device=device)
+    if cfg.family == "audio":
+        rng = np.random.default_rng(step)
+        batch["frames"] = torch.from_numpy(rng.normal(
+            size=(b, cfg.encoder_frames, cfg.d_model)).astype(
+                np.float32)).to(device)
+    return batch
 
 
 def opt_tree(state: adamw.AdamWState, cfg: ModelConfig,

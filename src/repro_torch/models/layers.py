@@ -13,8 +13,9 @@ the same sums. The reference's sharding hints (``batch_shard``,
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -48,6 +49,26 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int,
                         device=positions.device) / half
     freqs = 1.0 / (theta ** exps)
     ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
+                  sections: Sequence[int]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Qwen2-VL multimodal RoPE: positions ``[3, B, S]`` (t, h, w) ->
+    cos/sin ``[B, S, head_dim // 2]`` (f32). The frequency slots are split
+    into (t, h, w) sections, each driven by its own position stream."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"head_dim // 2 = {half}")
+    exps = torch.arange(half, dtype=torch.float32,
+                        device=positions.device) / half
+    freqs = 1.0 / (theta ** exps)
+    # the section id of each frequency slot
+    sec_id = torch.from_numpy(np.repeat(np.arange(len(sections)), sections))
+    pos_per_freq = positions.float()[sec_id.to(positions.device)]
+    ang = pos_per_freq.movedim(0, -1) * freqs       # [B, S, half]
     return torch.cos(ang), torch.sin(ang)
 
 

@@ -1,5 +1,7 @@
-"""Decoder-only transformer LM, families ``dense`` (llama / qwen) and
-``moe`` (mixtral / granite) (port of ``repro.models.transformer``).
+"""Decoder-only transformer LM, families ``dense`` (llama / qwen), ``moe``
+(mixtral / granite) and the ``vlm`` backbone (qwen2-vl: M-RoPE and a
+stubbed vision frontend, ``models/vlm.py``) (port of
+``repro.models.transformer``).
 
 ``Transformer`` is an ``nn.Module`` with one ``Block`` per layer; each
 block keeps its weights in ``nn.ParameterDict``s under the reference's
@@ -44,15 +46,38 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.moe import dtype_of, init_moe_mlp, moe_mlp
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "vlm")
 
 
-def _param(t: torch.Tensor) -> nn.Parameter:
+def frozen(t):
+    """A parameter (``requires_grad=False``) of a tensor, or a
+    ``nn.ParameterDict`` of such of a dict of tensors."""
+    if isinstance(t, dict):
+        return nn.ParameterDict({k: frozen(v) for k, v in t.items()})
     return nn.Parameter(t, requires_grad=False)
 
 
-def _params(tensors: Dict[str, torch.Tensor]) -> nn.ParameterDict:
-    return nn.ParameterDict({k: _param(v) for k, v in tensors.items()})
+class LM(nn.Module):
+    """What the port's LMs share: an ``embed`` parameter on the model's
+    device, and the reference's stacked layout, ``STACK_DEPTH``: the
+    stacked leading dims of each top-level key of the reference's pytree
+    (``blocks`` is ``[L, ...]``, hybrid's ``ssm_blocks`` ``[n_apps,
+    period, ...]``)."""
+
+    STACK_DEPTH: Dict[str, int] = {}
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def reference_ndims(self) -> Dict[str, int]:
+        """Each parameter's rank in the reference's pytree: its own plus
+        the stacked dims of its top-level key (what AdamW's matrices-only
+        decay reads: a stacked norm scale is a matrix there, and
+        decays)."""
+        depth = self.STACK_DEPTH
+        return {k: p.dim() + depth.get(k.split(".")[0], 0)
+                for k, p in self.named_parameters()}
 
 
 class Block(nn.Module):
@@ -85,10 +110,10 @@ class Block(nn.Module):
                 "w_up": dense((d, cfg.d_ff), d),
                 "w_down": dense((cfg.d_ff, d), cfg.d_ff),
             }
-        self.attn = _params(attn)
-        self.mlp = _params(mlp)
-        self.norm1 = _param(torch.zeros((d,), dtype=dt, device=device))
-        self.norm2 = _param(torch.zeros((d,), dtype=dt, device=device))
+        self.attn = frozen(attn)
+        self.mlp = frozen(mlp)
+        self.norm1 = frozen(torch.zeros((d,), dtype=dt, device=device))
+        self.norm2 = frozen(torch.zeros((d,), dtype=dt, device=device))
 
 
 def _qkv(x, p, cfg: ModelConfig):
@@ -144,41 +169,41 @@ def cache_window(cfg: ModelConfig, max_len: int) -> int:
     return max_len
 
 
-class Transformer(nn.Module):
-    """Decoder-only LM of the ``dense`` and ``moe`` families.
+class Transformer(LM):
+    """Decoder-only LM of the ``dense``, ``moe`` and ``vlm`` families.
 
     ``gen`` draws every weight on its own device, one tensor at a time in
     f32 and then cast to ``cfg.dtype`` (the model never exists whole in
     f32); norms and biases start at zero, as in the reference."""
 
+    #: stacked dims of each top-level key in the reference's pytree
+    STACK_DEPTH = {"blocks": 1}
+
     def __init__(self, cfg: ModelConfig, gen: torch.Generator):
         super().__init__()
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, "
-                "item 12)")
-        if cfg.mrope_sections:
-            raise NotImplementedError("M-RoPE (the vlm family) is not ported")
+            raise ValueError(f"family {cfg.family!r} is not a transformer's; "
+                             f"Transformer builds {FAMILIES}")
         self.cfg = cfg
         dt = dtype_of(cfg)
         d = cfg.d_model
-        self.embed = _param(L.dense_init(gen, (cfg.vocab_size, d), d, dt))
+        self.embed = frozen(L.dense_init(gen, (cfg.vocab_size, d), d, dt))
         self.blocks = nn.ModuleList(Block(cfg, gen)
                                     for _ in range(cfg.num_layers))
-        self.final_norm = _param(torch.zeros((d,), dtype=dt,
+        self.final_norm = frozen(torch.zeros((d,), dtype=dt,
                                              device=gen.device))
         if not cfg.tie_embeddings:
-            self.lm_head = _param(L.dense_init(gen, (d, cfg.vocab_size), d,
+            self.lm_head = frozen(L.dense_init(gen, (d, cfg.vocab_size), d,
                                                dt))
 
     # ---------------------------------------------------------------- util
-    @property
-    def device(self) -> torch.device:
-        return self.embed.device
-
-    def _rope(self, positions):
-        return L.rope_cos_sin(positions, self.cfg.resolved_head_dim,
-                              self.cfg.rope_theta)
+    def _rope(self, positions, mrope_positions=None):
+        cfg = self.cfg
+        if cfg.mrope_sections and mrope_positions is not None:
+            return L.mrope_cos_sin(mrope_positions, cfg.resolved_head_dim,
+                                   cfg.rope_theta, cfg.mrope_sections)
+        return L.rope_cos_sin(positions, cfg.resolved_head_dim,
+                              cfg.rope_theta)
 
     def _logits(self, x):
         x = L.rms_norm(x, self.final_norm)
@@ -186,15 +211,16 @@ class Transformer(nn.Module):
             return L.lm_head(x, self.embed, transpose=True)
         return L.lm_head(x, self.lm_head)
 
-    def _embed(self, tokens):
-        return self.embed.to(dtype_of(self.cfg))[tokens.long()]
+    def _embed(self, tokens, extra_embeds=None):
+        x = self.embed.to(dtype_of(self.cfg))[tokens.long()]
+        if extra_embeds is not None:
+            # the vlm stub: precomputed patch embeddings before the text
+            x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+        return x
 
-    def reference_ndims(self) -> Dict[str, int]:
-        """Each parameter's rank in the reference's pytree, where blocks
-        are stacked ``[L, ...]``: one more than the tensor's own for a
-        block's parameter (what AdamW's matrices-only decay reads)."""
-        return {k: p.dim() + k.startswith("blocks.")
-                for k, p in self.named_parameters()}
+    def _positions(self, x):
+        b, s, _ = x.shape
+        return torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
 
     # ------------------------------------------------------------- forward
     def _block(self, x, blk, cos, sin):
@@ -203,16 +229,16 @@ class Transformer(nn.Module):
         x = x + h
         return x + _mlp(L.rms_norm(x, blk.norm2), blk.mlp, self.cfg)
 
-    def forward(self, tokens: torch.Tensor, return_hidden: bool = False):
+    def forward(self, tokens: torch.Tensor, return_hidden: bool = False,
+                mrope_positions: Optional[torch.Tensor] = None,
+                extra_embeds: Optional[torch.Tensor] = None):
         """Full-sequence forward: tokens [B, S] -> logits [B, S, V]; with
         ``return_hidden``, ``(hidden [B, S, D], head)`` after the final
         norm, ``head`` ``[D, V]`` (``embed.T`` when the embeddings are
-        tied)."""
-        x = self._embed(tokens)
-        b, s, _ = x.shape
-        positions = torch.arange(s, dtype=torch.int32,
-                                 device=x.device).expand(b, s)
-        cos, sin = self._rope(positions)
+        tied). The vlm family passes ``extra_embeds [B, S_img, D]``,
+        prefixed to the text, and ``mrope_positions [3, B, S_img + S]``."""
+        x = self._embed(tokens, extra_embeds)
+        cos, sin = self._rope(self._positions(x), mrope_positions)
         remat = self.cfg.remat and torch.is_grad_enabled()
         for blk in self.blocks:
             if remat:
@@ -239,17 +265,18 @@ class Transformer(nn.Module):
             "cur": 0,
         }
 
-    def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None
+    def prefill(self, tokens: torch.Tensor, max_len: Optional[int] = None,
+                mrope_positions: Optional[torch.Tensor] = None,
+                extra_embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict[str, object]]:
         """Forward pass that also fills the KV cache. With ``s >= w`` the
         cache keeps the last ``w`` positions in the rolling layout (slot
-        ``pos % w``); otherwise positions ``0..s-1`` and empty slots."""
-        x = self._embed(tokens)
-        b, s, _ = x.shape
+        ``pos % w``); otherwise positions ``0..s-1`` and empty slots.
+        ``s`` counts the image prefix of ``extra_embeds`` too."""
+        x = self._embed(tokens, extra_embeds)
+        s = x.shape[1]
         w = cache_window(self.cfg, max_len or s)
-        positions = torch.arange(s, dtype=torch.int32,
-                                 device=x.device).expand(b, s)
-        cos, sin = self._rope(positions)
+        cos, sin = self._rope(self._positions(x), mrope_positions)
         ks, vs = [], []
         for blk in self.blocks:
             h, k, v = _attn_train(L.rms_norm(x, blk.norm1), blk.attn,
@@ -286,7 +313,11 @@ class Transformer(nn.Module):
         cur = int(cache["cur"])
         positions = torch.full((b, 1), cur, dtype=torch.int32,
                                device=x.device)
-        cos, sin = self._rope(positions)
+        # M-RoPE: the new token at position cur on all three streams
+        mpos = (torch.full((3, b, 1), cur, dtype=torch.int32,
+                           device=x.device)
+                if self.cfg.mrope_sections else None)
+        cos, sin = self._rope(positions, mpos)
         w = cache["k"].shape[2]
         cache["pos"][cur % w] = cur
         for i, blk in enumerate(self.blocks):

@@ -34,6 +34,10 @@ from repro_torch.launch import train as T
 from repro_torch.optim import adamw
 
 
+#: dense, MoE, and the hybrid's ``[n_apps, period]`` and unstacked leaves
+ARCHS = ["llama3.2-1b", "granite-moe-3b-a800m", "zamba2-2.7b"]
+
+
 def tree():
     return {
         "a": np.arange(12, dtype=np.float32).reshape(3, 4),
@@ -150,7 +154,7 @@ def port_model(arch):
     return tcfg, model, st
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_reference_file_restores_into_the_port(tmp_path, arch):
     cfg, params, state = reference_state(arch)
     JCheckpointer(str(tmp_path), async_save=False).save(3, params, state)
@@ -174,7 +178,7 @@ def test_reference_file_restores_into_the_port(tmp_path, arch):
         assert sorted(z.files) == keys
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_port_file_restores_through_the_reference(tmp_path, arch):
     cfg, params, state = reference_state(arch)
     tcfg, model, st = port_model(arch)

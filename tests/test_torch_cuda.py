@@ -989,3 +989,73 @@ def test_train_defaults_to_the_card(cuda_device):
                    batch_size=2, seq_len=2048, ckpt_dir=None)
     assert len(losses) == 3 and np.isfinite(losses).all()
     assert kernel.launch_counts()[kernel.BOUNDARY_ASYNC] == 3
+
+
+# ------------------------------------------------ ssm, hybrid, audio, vlm --
+FAMILY_ARCHS = ["mamba2-130m", "zamba2-2.7b", "whisper-large-v3",
+                "qwen2-vl-2b"]
+FAMILY_TOL = 1e-4
+
+
+def _family_batch(cfg, seed, b=2, s=32):
+    """Tokens, the vlm's image prefix (16 patches, 4x4) and M-RoPE
+    positions, the audio frames, made with numpy from ``seed``."""
+    from repro_torch.models.vlm import make_mrope_positions
+
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(3, cfg.vocab_size, (b, s)).astype(
+        np.int32)}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = rng.standard_normal(
+            (b, 16, cfg.d_model)).astype(np.float32)
+        batch["mrope_positions"] = make_mrope_positions(
+            b, 16 + s, 16, (4, 4)).numpy()
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal(
+            (b, cfg.encoder_frames, cfg.d_model)).astype(np.float32)
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def _rel(got, want):
+    want = want.double()
+    return float((got.cpu().double() - want).abs().max()
+                 / want.abs().max().clamp(min=1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_prefill_and_decode_on_card_equal_cpu(cuda_device, arch):
+    """The smoke config in f32, the same weights on the card and on the
+    CPU: prefill logits and every cache tensor, then three decode steps
+    (the CPU's greedy tokens fed to both), within 1e-4 of each tensor's
+    largest magnitude; ``pos`` and ``cur`` equal."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import adapters
+
+    cfg = get_smoke_config(arch)
+    batch = _family_batch(cfg, 0)
+    models = {d: adapters.init_fn(torch.Generator().manual_seed(0),
+                                  cfg).to(d) for d in ("cpu", cuda_device)}
+
+    def check(runs):
+        (l0, c0), (l1, c1) = runs["cpu"], runs[cuda_device]
+        assert l1.device.type == "cuda" and _rel(l1, l0) <= FAMILY_TOL
+        assert set(c0) == set(c1)
+        for k, v in c0.items():
+            if k == "cur":
+                assert c1[k] == v
+            elif v.dtype == torch.int32:
+                assert torch.equal(c1[k].cpu(), v), k
+            else:
+                assert _rel(c1[k], v) <= FAMILY_TOL, k
+        return torch.argmax(l0[:, -1:], -1).to(torch.int32)
+
+    with torch.no_grad():
+        runs = {d: adapters.prefill_fn(m, {k: v.to(d) for k, v in
+                                           batch.items()}, cfg, max_len=56)
+                for d, m in models.items()}
+        tok = check(runs)
+        for _ in range(3):
+            runs = {d: adapters.decode_fn(m, runs[d][1], tok.to(d), cfg)
+                    for d, m in models.items()}
+            tok = check(runs)

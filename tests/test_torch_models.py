@@ -1,5 +1,6 @@
 """The port's LM serving path against the JAX package on the CPU, in f32,
-on the smoke configs of granite-moe, mixtral, qwen1.5-0.5b and llama3.2-1b.
+on the smoke configs of granite-moe, mixtral, qwen1.5-0.5b and llama3.2-1b
+(the ssm, hybrid, audio and vlm families: ``test_torch_families.py``).
 
 Inputs are made with numpy from a seed; parameters come from the
 reference's ``init_fn(PRNGKey(s), cfg)`` and are carried across with
@@ -71,7 +72,10 @@ def test_configs_equal_reference(arch):
 
 @pytest.mark.parametrize("arch", configs.NOT_PORTED)
 def test_unported_arch_raises(arch):
-    with pytest.raises(NotImplementedError, match="item 12"):
+    """Only the two architectures that need sharding across cards are
+    refused, citing ROADMAP's item 12.3."""
+    assert set(configs.NOT_PORTED) == {"llama3-405b", "qwen1.5-110b"}
+    with pytest.raises(NotImplementedError, match=r"item 12\.3"):
         configs.get_config(arch)
     with pytest.raises(KeyError):
         configs.get_config("no-such-arch")
@@ -336,10 +340,22 @@ def test_serve_on_cpu_is_seeded_and_fills_every_request():
 
 
 def test_unported_family_raises():
+    """An unknown family raises what the reference's adapters raise: a
+    ``KeyError`` from the family lookups of ``init_fn``, ``decode_fn`` and
+    ``init_cache_fn``."""
     cfg = dataclasses.replace(configs.get_smoke_config("llama3.2-1b"),
-                              family="ssm")
-    with pytest.raises(NotImplementedError, match="item 12"):
+                              family="no-such-family")
+    with pytest.raises(KeyError):
         TA.init_fn(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(KeyError):
+        JA.init_fn(jax.random.PRNGKey(0), cfg)
+    model = TA.init_fn(torch.Generator().manual_seed(0),
+                       configs.get_smoke_config("llama3.2-1b"))
+    with pytest.raises(KeyError):
+        TA.decode_fn(model, {}, None, cfg)
+    model.cfg = cfg
+    with pytest.raises(KeyError):
+        TA.init_cache_fn(model, 1, 8)
 
 
 @pytest.mark.parametrize("arch,max_len", [("mixtral-8x7b", 48),

@@ -430,15 +430,30 @@ def test_train_defaults_to_the_card(monkeypatch):
                  seq_len=32, ckpt_dir=None)
 
 
-@pytest.mark.parametrize("family", ["vlm", "audio", "ssm"])
-def test_unported_families_raise(family):
+@pytest.mark.parametrize("entry", ["train_hidden", "prefill_fn",
+                                   "build_batch"])
+def test_unported_families_raise(entry):
+    """An unknown family: ``train_hidden`` and ``prefill_fn`` raise the
+    reference's ``ValueError(family)``; ``build_batch`` does not reject a
+    family, as the reference's does not (tokens and mask only)."""
     cfg = dataclasses.replace(configs.get_smoke_config("llama3.2-1b"),
-                              family=family)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        if family == "ssm":
-            TA.train_hidden(None, {}, cfg)
-        else:
-            TT.build_batch(cfg, None, 0, "cpu")
+                              family="no-such-family")
+    jcfg = dataclasses.replace(jax_smoke("llama3.2-1b"),
+                               family="no-such-family")
+    if entry == "build_batch":
+        kw = dict(vocab_size=cfg.vocab_size, seq_len=32, batch_per_host=2)
+        got = TT.build_batch(cfg, DataConfig(**kw), 0, "cpu")
+        from repro.data import DataConfig as JDataConfig
+        want = JT.build_batch(jcfg, JDataConfig(**kw), 0)
+        assert set(got) == set(want) == {"tokens", "mask"}
+        return
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
+             "mask": torch.ones((1, 4), dtype=torch.bool)}
+    with pytest.raises(ValueError, match="no-such-family"):
+        getattr(TA, entry)(None, batch, cfg)
+    with pytest.raises(ValueError, match="no-such-family"):
+        getattr(JA, entry)(None, {k: jnp.asarray(v.numpy())
+                                  for k, v in batch.items()}, jcfg)
 
 
 # ------------------------------------ the reference's test_system.py ----

@@ -188,7 +188,25 @@ Phases (any failure raises and exits non-zero):
    moments bit-equal to the live ones), and the next step from both
    (loss within 1e-4). (e) The packer's kernel timed beside
    ``ref_skipper`` on the last step's tiles for the kernels line.
-8. A ``{"kernels": [...]}`` line (the canaries with ``"status":
+8. The sharding layer (``repro_torch.parallel``, ``launch.mesh``,
+   ``launch.dryrun``). (a) The dry-run reckons every runnable cell on the
+   16x16 and 2x16x16 meshes (a line a cell; none may fail; the counts
+   that fit the card's memory in the reference's layout and in the
+   port's own step). (b) The smoke configs of llama3-405b and
+   qwen1.5-110b, card against CPU at 1e-4 as in 6b(a). (c) Both at full
+   width cut to SHARD_LAYERS layers (bf16, seeded weights) through
+   ``serve``: one request, a 512-token prompt, 8 new tokens, every logit
+   finite. (d) One qwen1.5-110b training step at that depth, 1 x 2048,
+   bf16 moments as its config says, through ``launch.train.train``:
+   first without a process group, then under ``make_host_mesh()`` on a
+   one-rank NCCL group (parameters and moments held as ``param_specs``
+   slices them, the loss the all-reduced global mean), the launch
+   counts reset just before (the packer's global tier must launch);
+   loss finite, and the sharded loss and every updated parameter within
+   one bf16 step of the unsharded ones (the largest difference printed).
+   A ``sharding metrics:`` line with the times, peak device bytes and
+   cells, the nvidia-smi line beside it.
+9. A ``{"kernels": [...]}`` line (the canaries with ``"status":
    "canary"``), the nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -2252,7 +2270,7 @@ def family_batch(cfg, seed: int, b: int, s: int, dev, n_img: int = FAMILY_IMG,
     return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
 
-def families_small(dev, seed: int) -> dict:
+def families_small(dev, seed: int, archs=FAMILY_ARCHS) -> dict:
     """Phase 6b(a): each smoke config, in f32, with weights drawn on a CPU
     generator and copied to the card: prefill logits and every cache
     tensor, then FAMILY_STEPS decode steps (the CPU's greedy tokens fed to
@@ -2262,7 +2280,7 @@ def families_small(dev, seed: int) -> dict:
     from repro_torch.launch import adapters
 
     out = {}
-    for arch in FAMILY_ARCHS:
+    for arch in archs:
         cfg = get_smoke_config(arch)
         require(cfg.dtype == "float32", f"{arch}: smoke config not f32")
         batch = family_batch(cfg, seed, 2, 32, "cpu")
@@ -2913,6 +2931,164 @@ def phase_train(dev, seed: int) -> dict:
             "library_ms": None}
 
 
+# ---------------------------------------------------------------- phase 8 --
+#: the two architectures the sharding layer brought in, at full width cut
+#: to this depth on one card (their bf16 weights whole: about 810 GB and
+#: 220 GB; at two layers 21.3 GB and 10.4 GB)
+SHARD_ARCHS = ("llama3-405b", "qwen1.5-110b")
+SHARD_LAYERS = 2
+SHARD_SERVE = dict(num_requests=1, slots=1, prompt_len=512, max_new=8)
+#: the training step: qwen1.5-110b, one row of 2048 tokens, seed 0
+SHARD_TRAIN = dict(steps=1, batch_size=1, seq_len=2048)
+
+
+def bf16_steps(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Largest distance in bf16 steps between two bf16 tensors (their bit
+    patterns as ordered integers)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -32768 - i, i)
+    return int((ordered(got) - ordered(want)).abs().max())
+
+
+def shard_train(dev) -> dict:
+    """Phase 8(d): one qwen1.5-110b step at SHARD_LAYERS layers, without
+    a process group and then on a one-rank NCCL group; the two held
+    within one bf16 step."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.skipper_match import kernel
+    from repro_torch.launch.train import train
+
+    arch = SHARD_ARCHS[1]
+    cfg = get_config(arch)
+    require(cfg.opt_state_dtype == "bfloat16", f"{arch}: moments not bf16")
+    kw = dict(SHARD_TRAIN, ckpt_dir=None, device=dev, layers=SHARD_LAYERS,
+              log_every=1000, return_params=True)
+    out = {"arch": arch, "layers": SHARD_LAYERS, **SHARD_TRAIN}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss0, want = train(arch, False, **kw)
+    torch.cuda.synchronize()
+    out["unsharded_s"] = time.perf_counter() - t0
+    out["unsharded_peak_bytes"] = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        kernel.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss1, got = train(arch, False, **kw)
+        torch.cuda.synchronize()
+        out["sharded_s"] = time.perf_counter() - t0
+        launches = kernel.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    out["sharded_peak_bytes"] = torch.cuda.max_memory_allocated()
+    require(launches[ASYNC] >= SHARD_TRAIN["steps"], f"the packer's global "
+            f"tier launched {launches[ASYNC]} times in the sharded step")
+    require(all(np.isfinite(loss0 + loss1)), f"losses {loss0} {loss1}")
+    require(set(got) == set(want), "the sharded run's parameters differ in "
+            "keys")
+    steps = {k: bf16_steps(got[k], want[k]) for k in want}
+    worst = max(steps, key=steps.get)
+    loss_step = abs(loss1[0] - loss0[0]) / (2.0 ** (np.floor(np.log2(
+        abs(loss0[0]))) - 7))
+    out.update(losses_unsharded=loss0, losses_sharded=loss1,
+               loss_diff=abs(loss1[0] - loss0[0]),
+               loss_diff_bf16_steps=loss_step,
+               param_bf16_steps_max=steps[worst], param_worst=worst,
+               params=sum(t.numel() for t in want.values()),
+               packer_launches=launches[ASYNC])
+    log(f"sharded train ({arch}, {SHARD_LAYERS} layers, 1 x "
+        f"{SHARD_TRAIN['seq_len']}): loss {loss1[0]:.6f} against "
+        f"{loss0[0]:.6f} unsharded ({loss_step:.3f} bf16 steps); "
+        f"largest parameter difference {steps[worst]} bf16 step(s) "
+        f"({worst}); {launches[ASYNC]} packer launch(es)")
+    require(loss_step <= 1 and steps[worst] <= 1, "the sharded step is "
+            "not within one bf16 step of the unsharded one")
+    del want, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharding(dev, seed: int, smi: str) -> None:
+    """Phase 8: the dry-run, the two sharded architectures' smoke configs
+    card against CPU, their serving at full width and SHARD_LAYERS
+    layers, and the sharded training step (see the module's
+    docstring)."""
+    from repro_torch.configs import get_config, runnable_cells
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.serve import serve
+
+    t_phase = time.perf_counter()
+    parts = {}
+    recs = [dryrun.run_cell(arch, shape, mp, force=True, write=False)
+            for arch, shapes in runnable_cells().items() for shape in shapes
+            for mp in (False, True)]
+    for rec in recs:
+        log("dry-run " + dryrun.line(rec))
+    ok = [r for r in recs if r.get("ok")]
+    fits = [r for r in ok if r["fits_hbm"]]
+    port_fits = [r for r in ok if r["port"]["runs"] and r["port"]["fits"]]
+    log(f"dry-run: {len(ok)} of {len(recs)} cells reckoned; in the "
+        f"reference's layout {len(fits)} fit the card's "
+        f"{ok[0]['hbm_capacity_bytes'] if ok else 0} bytes, in the port's "
+        f"own step {len(port_fits)}")
+    require(len(ok) == len(recs), "a dry-run cell failed")
+    parts["dryrun_s"] = time.perf_counter() - t_phase
+
+    def cell(r):
+        return f"{r['arch']}/{r['shape']}/{r['mesh']}"
+
+    metrics = {"dryrun_cells": len(recs), "dryrun_ok": len(ok),
+               "dryrun_fit": len(fits), "dryrun_port_fit": len(port_fits),
+               "dryrun_not_fitting": [cell(r) for r in ok
+                                      if not r["fits_hbm"]],
+               "dryrun_port_not_fitting": [cell(r) for r in ok
+                                           if r not in port_fits]}
+    t0 = time.perf_counter()
+    metrics["smoke_card_vs_cpu_rel_err"] = families_small(dev, seed,
+                                                          SHARD_ARCHS)
+    parts["smoke_s"] = time.perf_counter() - t0
+    for arch in SHARD_ARCHS:
+        cfg = get_config(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with Recorder() as rec:
+            outputs, st = serve(arch, False, seed=seed, device=dev,
+                                layers=SHARD_LAYERS, **SHARD_SERVE)
+        require(rec.finite and rec.logit_calls > 0,
+                f"{arch} serving: non-finite logits")
+        require(len(outputs[0]) == SHARD_SERVE["max_new"]
+                or outputs[0][-1] == 2, f"{arch}: the request stopped early")
+        metrics[arch] = {
+            "layers": SHARD_LAYERS, "d_model": cfg.d_model,
+            "vocab": cfg.vocab_size, **SHARD_SERVE,
+            "prefill_ms": 1e3 * st["prefill_s"][0],
+            "decode_tokens_per_s": st["decoded"] / st["decode_s"],
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "tokens": outputs[0]}
+        parts[arch] = time.perf_counter() - t0
+        log(f"{arch} ({SHARD_LAYERS} layers, full width): prefill "
+            f"{metrics[arch]['prefill_ms']:.1f} ms, decode "
+            f"{metrics[arch]['decode_tokens_per_s']:.1f} tokens/s, peak "
+            f"{metrics[arch]['peak_device_bytes'] / 1e9:.1f} GB")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    metrics["train"] = shard_train(dev)
+    parts["train_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    metrics.update(parts=parts, phase_s=time.perf_counter() - t_phase,
+                   device=smi)
+    log("sharding metrics: " + json.dumps(metrics))
+    log(smi)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2993,6 +3169,7 @@ def main() -> int:
     phase_serve(dev, args.seed)
     phase_families(dev, args.seed)
     kernels.append(phase_train(dev, args.seed))
+    phase_sharding(dev, args.seed, smi)
     log(f"chip_smoke: {time.perf_counter() - start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)

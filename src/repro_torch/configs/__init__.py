@@ -4,13 +4,14 @@ from repro_torch.configs.base import (
 )
 from repro_torch.configs.registry import (
     ARCH_IDS,
-    NOT_PORTED,
     get_config,
     get_shape,
     get_smoke_config,
+    runnable_cells,
 )
 
 __all__ = [
     "ModelConfig", "ShapeConfig", "SHAPES", "TrainConfig",
-    "ARCH_IDS", "NOT_PORTED", "get_config", "get_smoke_config", "get_shape",
+    "ARCH_IDS", "get_config", "get_smoke_config", "get_shape",
+    "runnable_cells",
 ]

@@ -14,23 +14,28 @@ The reference's pytree of parameters is the model module here (``dense``,
 where the reference takes ``params``. An unknown family raises what the
 reference raises: ``KeyError`` from the family lookups of ``init_fn``,
 ``decode_fn`` and ``init_cache_fn``, ``ValueError`` from ``train_hidden``
-and ``prefill_fn``. The dry-run input specs (``batch_specs``,
-``cache_specs``, ``decode_token_specs``) wait for ROADMAP queue 1, item
-12.3.
+and ``prefill_fn``.
+
+The dry-run's input specs, with no allocation: ``abstract_model(cfg)``
+builds the model on the ``meta`` device, and ``batch_specs``,
+``cache_specs`` and ``decode_token_specs`` return ``(tensors, specs)``:
+``meta`` tensors of the inputs' shapes and dtypes (the reference's
+``ShapeDtypeStruct``s) and a ``parallel.sharding.Spec`` for each.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import vlm as V
 from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.hybrid import HybridLM
 from repro_torch.models.ssm import SSMLM
 from repro_torch.models.transformer import Transformer
+from repro_torch.parallel.sharding import FSDP_AXES, Mesh, Spec
 
 #: the stub vision prefix of the vlm family: 1,024 patches on a 32x32 grid
 VLM_IMAGE_TOKENS = 1024
@@ -106,3 +111,121 @@ def decode_fn(model: nn.Module, cache, tokens, cfg: ModelConfig):
 def init_cache_fn(model: nn.Module, batch: int, max_len: int):
     _MODELS[model.cfg.family]    # an unknown family raises KeyError
     return model.init_cache(batch, max_len)
+
+
+# ------------------------------------------------------------ input specs --
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws land on the ``meta`` device: what
+    ``init_fn`` reads ``.device`` from to place every weight."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def abstract_model(cfg: ModelConfig) -> nn.Module:
+    """``cfg``'s model on the ``meta`` device: every parameter's shape and
+    dtype, no memory (``jax.eval_shape(init_fn)``)."""
+    return init_fn(_MetaGenerator(), cfg)
+
+
+def _dt(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _fsdp(mesh_names) -> Tuple[str, ...]:
+    axes = tuple(a for a in FSDP_AXES if a in mesh_names)
+    return axes if axes else (mesh_names[0],)
+
+
+def _maybe(dim: int, axes, mesh: Mesh):
+    if axes is None:
+        return None
+    return axes if dim % mesh.axis_size(axes) == 0 else None
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh
+                ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Spec]]:
+    """The train or prefill batch: (``meta`` tensors, specs)."""
+    b, s = shape.global_batch, shape.seq_len
+    dt = _dt(cfg)
+    bspec = _maybe(b, _fsdp(mesh.axis_names), mesh)
+    batch, specs = {}, {}
+
+    def put(key, shp, dtype, *spec):
+        batch[key], specs[key] = _meta(shp, dtype), Spec(*spec)
+
+    if cfg.family == "vlm":
+        n_img = min(VLM_IMAGE_TOKENS, s // 2)
+        put("tokens", (b, s - n_img), torch.int32, bspec, None)
+        put("image_embeds", (b, n_img, cfg.d_model), dt, bspec, None, None)
+        put("mrope_positions", (3, b, s), torch.int32, None, bspec, None)
+        put("mask", (b, s - n_img), torch.bool, bspec, None)
+    elif cfg.family == "audio":
+        put("tokens", (b, s), torch.int32, bspec, None)
+        put("frames", (b, cfg.encoder_frames, cfg.d_model), dt, bspec, None,
+            None)
+        put("mask", (b, s), torch.bool, bspec, None)
+    else:
+        put("tokens", (b, s), torch.int32, bspec, None)
+        put("mask", (b, s), torch.bool, bspec, None)
+    return batch, specs
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
+                model: Optional[nn.Module] = None
+                ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Spec]]:
+    """A decode cell's cache, filled to ``shape.seq_len``: (``meta``
+    tensors from ``init_cache_fn`` on the ``meta`` model, specs). The
+    scalar ``cur`` is an int32 ``meta`` scalar, as the reference's
+    leaf is."""
+    names = mesh.axis_names
+    fsdp = _fsdp(names)
+    tp = "model" if "model" in names else None
+    b, s = shape.global_batch, shape.seq_len
+    cache = init_cache_fn(model if model is not None
+                          else abstract_model(cfg), b, s)
+    cache = {k: (v if isinstance(v, torch.Tensor)
+                 else _meta((), torch.int32)) for k, v in cache.items()}
+
+    def spec_for(key: str, leaf: torch.Tensor) -> Spec:
+        shp = tuple(leaf.shape)
+        if key == "pos" or leaf.dim() == 0:
+            return Spec()
+        if key in ("k", "v", "cross_k", "cross_v"):
+            # [L (or apps), B, W, H, hd]
+            _, bb, w, h, _ = shp
+            bspec = _maybe(bb, fsdp, mesh)
+            hspec = _maybe(h, tp, mesh) if tp else None
+            wspec = None
+            if hspec is None and tp:
+                wspec = _maybe(w, tp, mesh)
+            if bspec is None and wspec is None:
+                # B = 1 long context: spread the sequence over fsdp
+                wspec = _maybe(w, fsdp, mesh)
+            return Spec(None, bspec, wspec, hspec, None)
+        if key == "conv":
+            # [..., B, W-1, C]
+            bspec = _maybe(shp[-3], fsdp, mesh)
+            cspec = _maybe(shp[-1], tp, mesh) if tp else None
+            return Spec(*(None,) * (leaf.dim() - 3), bspec, None, cspec)
+        if key == "ssm":
+            # [..., B, H, P, N]
+            bspec = _maybe(shp[-4], fsdp, mesh)
+            hspec = _maybe(shp[-3], tp, mesh) if tp else None
+            return Spec(*(None,) * (leaf.dim() - 4), bspec, hspec, None,
+                        None)
+        return Spec()
+
+    return cache, {k: spec_for(k, v) for k, v in cache.items()}
+
+
+def decode_token_specs(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh
+                       ) -> Tuple[torch.Tensor, Spec]:
+    b = shape.global_batch
+    bspec = _maybe(b, _fsdp(mesh.axis_names), mesh)
+    return _meta((b, 1), torch.int32), Spec(bspec, None)

@@ -9,7 +9,14 @@ Serves the decoder-only families ``dense``, ``moe``, ``ssm`` and
 ``hybrid``, as the reference does. Runs on the card unless ``--device
 cpu`` is given; without a card the default raises. Weights are drawn on
 the device itself from a ``torch.Generator`` seeded with ``seed`` (0 from
-the command line).
+the command line); ``layers`` cuts the depth.
+
+The loop runs under ``launch.mesh.make_host_mesh()``, as the reference's
+does. Every rank holds the whole model and every request (the
+reference's arrays are replicated); over several data ranks an MoE
+layer's dispatch and combine are shard-local, each rank's block gathered
+back (``models.moe.moe_mlp``), so the tokens are the reference's at that
+mesh.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve \\
@@ -23,6 +30,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -32,7 +40,9 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.launch import adapters
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import make_serve_step
+from repro_torch.parallel import sharding
 
 EOS = 2
 #: the families served, as in the reference (the vlm and audio families
@@ -47,7 +57,8 @@ def _sync(device: torch.device) -> None:
 
 def serve(arch: str, smoke: bool, num_requests: int, slots: int,
           prompt_len: int, max_new: int, seed: int = 0,
-          device=None) -> Tuple[Dict[int, List[int]], Dict[str, object]]:
+          device=None, layers: Optional[int] = None
+          ) -> Tuple[Dict[int, List[int]], Dict[str, object]]:
     """Serve ``num_requests`` seeded random prompts; returns
     ``(outputs, stats)``: the decoded tokens of each request (the
     reference's return value) and the host-clock times, each ending in a
@@ -56,6 +67,8 @@ def serve(arch: str, smoke: bool, num_requests: int, slots: int,
     weights are drawn from a generator seeded with ``seed`` on
     ``device``."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     if cfg.family not in SERVED:
         raise ValueError(f"{arch}: serving drives the decoder-only families "
                          f"{SERVED}, not {cfg.family!r}")
@@ -66,6 +79,7 @@ def serve(arch: str, smoke: bool, num_requests: int, slots: int,
         for _ in range(num_requests)
     ]
     max_len = prompt_len + max_new
+    mesh = make_host_mesh()
     gen = torch.Generator(device=device).manual_seed(seed)
     model = adapters.init_fn(gen, cfg)
     serve_step = make_serve_step(cfg)
@@ -94,18 +108,19 @@ def serve(arch: str, smoke: bool, num_requests: int, slots: int,
         nxt, cache = prefill_one(requests[rid])
         return {"rid": rid, "tokens": nxt, "cache": cache, "n": 0}
 
-    slot_state = {s: refill() for s in range(slots)}
-    while any(v is not None for v in slot_state.values()):
-        for s, st in list(slot_state.items()):
-            if st is None:
-                continue
-            tok, cache = serve_step(model, st["cache"], st["tokens"])
-            nxt = int(tok[0, 0])  # host-sync: ok — EOS and output
-            outputs[st["rid"]].append(nxt)
-            decoded += 1
-            st["tokens"], st["cache"], st["n"] = tok, cache, st["n"] + 1
-            if nxt == EOS or st["n"] >= max_new:
-                slot_state[s] = refill()
+    with sharding.set_mesh(mesh):
+        slot_state = {s: refill() for s in range(slots)}
+        while any(v is not None for v in slot_state.values()):
+            for s, st in list(slot_state.items()):
+                if st is None:
+                    continue
+                tok, cache = serve_step(model, st["cache"], st["tokens"])
+                nxt = int(tok[0, 0])  # host-sync: ok — EOS and output
+                outputs[st["rid"]].append(nxt)
+                decoded += 1
+                st["tokens"], st["cache"], st["n"] = tok, cache, st["n"] + 1
+                if nxt == EOS or st["n"] >= max_new:
+                    slot_state[s] = refill()
     _sync(device)
     total = time.perf_counter() - t0
     decode_s = total - sum(prefill_s)
@@ -127,9 +142,12 @@ def main():
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the model to this depth")
     args = ap.parse_args()
     serve(args.arch, args.smoke, args.requests, args.slots,
-          args.prompt_len, args.max_new, device=args.device)
+          args.prompt_len, args.max_new, device=args.device,
+          layers=args.layers)
 
 
 if __name__ == "__main__":

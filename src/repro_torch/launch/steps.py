@@ -1,17 +1,21 @@
 """Step factories (port of ``repro.launch.steps``): ``train_step`` (forward,
-backward and AdamW, with microbatch accumulation), ``prefill_step`` and
+backward and AdamW, with microbatch accumulation; sharded over a mesh's
+ranks with ``parallel.fsdp.ShardedParams``), ``prefill_step`` and
 ``serve_step``. The serving steps run under ``torch.no_grad()``."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.launch import adapters
 from repro_torch.models import layers as L
 from repro_torch.optim import adamw
+from repro_torch.parallel import sharding
+from repro_torch.parallel.fsdp import ShardedParams
 
 
 def _ce_terms(logits: torch.Tensor, targets: torch.Tensor,
@@ -52,6 +56,16 @@ def chunked_ce(hidden, head_w, transpose_head: bool, targets, mask,
     grad enabled each chunk runs under a checkpoint, so backward recomputes
     its logits: the ``[B, S, V]`` logits, the largest activation of LM
     training, never exist whole, only ``[B, chunk, V]`` at a time."""
+    ce_sum, m_sum = chunked_ce_sums(hidden, head_w, transpose_head, targets,
+                                    mask, z_loss, chunk)
+    return ce_sum / torch.clamp(m_sum, min=1.0)
+
+
+def chunked_ce_sums(hidden, head_w, transpose_head: bool, targets, mask,
+                    z_loss: float = 0.0, chunk: int = CE_CHUNK
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``chunked_ce``'s masked sum of cross-entropy terms and its mask
+    count (f32 scalars)."""
     s = hidden.shape[1]
     c = min(chunk, s)
     if s % c:
@@ -68,17 +82,30 @@ def chunked_ce(hidden, head_w, transpose_head: bool, targets, mask,
             ce, m = _chunk_ce(*part)
         ce_sum = ce_sum + ce
         m_sum = m_sum + m
-    return ce_sum / torch.clamp(m_sum, min=1.0)
+    return ce_sum, m_sum
+
+
+def _local_rows() -> Optional[sharding.DataShards]:
+    shards = sharding.data_shards()
+    return shards if shards is not None and shards.local_batch else None
 
 
 def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig):
     """``loss_fn(model, batch) -> loss``: the chunked cross-entropy of the
-    model's next-token predictions."""
+    model's next-token predictions. Where each data rank holds its own
+    rows, the loss is the *global* masked mean: the mask counts are summed
+    over the ranks, and each rank's loss is its share of the global one
+    (the shares sum to it; their gradients sum to its gradient)."""
     def loss_fn(model, batch):
         hidden, head, transpose_head, targets, mask = adapters.train_hidden(
             model, batch, cfg)
-        return chunked_ce(hidden, head, transpose_head, targets, mask,
-                          tcfg.z_loss)
+        ce_sum, m_sum = chunked_ce_sums(hidden, head, transpose_head,
+                                        targets, mask, tcfg.z_loss)
+        shards = _local_rows()
+        if shards is not None:
+            m_sum = m_sum.detach().clone()
+            dist.all_reduce(m_sum, group=shards.group)
+        return ce_sum / torch.clamp(m_sum, min=1.0)
 
     return loss_fn
 
@@ -91,7 +118,8 @@ def _microbatch(key: str, v: torch.Tensor, i: int, mb: int) -> torch.Tensor:
     return v.narrow(axis, i * n, n)
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
+                    sharded: Optional[ShardedParams] = None):
     """``train_step(model, opt_state, batch) -> (opt_state, metrics)``.
 
     The step updates the model's parameters in place (the reference returns
@@ -101,6 +129,14 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     gradients of equal slices of the batch in ``acc_dtype`` (bf16 when the
     moments are bf16, f32 otherwise) and divides by their count, as the
     reference's scan does; the gradients then reach AdamW in that dtype.
+
+    With ``sharded`` (run it under ``sharding.set_mesh(mesh,
+    local_batch=True)`` with this rank's rows of the batch) the step
+    takes the gradients of ``sharded.params``, this rank's slices: each
+    split parameter is gathered where the model reads it and its
+    gradient summed over the data ranks in the backward (in bf16 with
+    ``tcfg.grad_compression == "bf16"``); it updates those slices and
+    ``opt_state``'s moments, which hold only those slices.
     """
     loss_fn = make_loss_fn(cfg, tcfg)
     acc_dtype = (torch.bfloat16 if cfg.opt_state_dtype == "bfloat16"
@@ -109,11 +145,19 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     def grads_of(model, names, params, batch):
         loss = loss_fn(model, batch)
         grads = torch.autograd.grad(loss, params)
-        return loss.detach(), dict(zip(names, grads))
+        loss = loss.detach()
+        shards = _local_rows()
+        if shards is not None:      # the global loss: the ranks' shares
+            dist.all_reduce(loss, group=shards.group)
+        return loss, dict(zip(names, grads))
 
     def train_step(model, opt_state: adamw.AdamWState,
                    batch: Dict[str, torch.Tensor]):
-        named = dict(model.named_parameters())
+        if sharded is None:
+            ndims, named = model.reference_ndims(), dict(
+                model.named_parameters())
+        else:
+            ndims, named = sharded.ndims, sharded.params
         names, params = list(named), list(named.values())
         for p in params:
             p.requires_grad_(True)
@@ -134,8 +178,11 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
             loss = lsum / mb
         else:
             loss, grads = grads_of(model, names, params, batch)
+        gnorm = None
+        if sharded is not None:
+            grads, gnorm = sharded.reduce(grads)
         _, opt_state, lr, gnorm = adamw.apply_updates(
-            named, grads, opt_state, tcfg, ndims=model.reference_ndims())
+            named, grads, opt_state, tcfg, ndims=ndims, gnorm=gnorm)
         metrics = {"loss": loss, "lr": lr, "grad_norm": gnorm,
                    "step": opt_state.step}
         return opt_state, metrics

@@ -10,12 +10,22 @@
   the latest step, so killing it at any point and running the same command
   again goes on where it stopped.
 
+* Sharded: the run's mesh is ``launch.mesh.make_host_mesh()``, ``(data =
+  world, model = 1)`` over the default process group's ranks when one is
+  initialised (one NCCL rank a card; gloo ranks on the CPU). There the
+  parameters and the AdamW moments live sharded as
+  ``parallel.sharding.param_specs`` says (``parallel.fsdp``: a split
+  parameter is made whole only where the model reads it), each rank
+  takes its rows of every batch (``batch_spec``: rows over ``data``), and
+  the loss is the global masked mean. Checkpoints are gathered and written
+  by rank 0. Without a process group the mesh is a 1x1 descriptor and the
+  run is one process's.
+
 Runs on the card unless ``--device cpu`` is given; without a card the
 default raises. Weights are drawn on the device from a ``torch.Generator``
-seeded with ``TrainConfig.seed``. One card runs the whole model: the
-reference's ``make_host_mesh`` and ``param_shardings`` have no counterpart
-here and wait for ROADMAP queue 1, items 12.3 (``parallel/``) and 12.4
-(``launch/mesh.py``). Every family of the registry trains here.
+seeded with ``TrainConfig.seed`` (every rank draws the same, then keeps
+its slices). The AdamW moments are of the config's ``opt_state_dtype``.
+``layers`` cuts the depth. Every family of the registry trains here.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train \\
@@ -26,6 +36,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Dict, Optional
 
@@ -39,9 +50,12 @@ from repro_torch.data import DataConfig, batch_for_step
 from repro_torch.device import resolve_device
 from repro_torch.interop import arrays_from_params, params_from_arrays
 from repro_torch.launch import adapters
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.vlm import make_mrope_positions
 from repro_torch.optim import adamw
+from repro_torch.parallel import sharding
+from repro_torch.parallel.fsdp import ShardedParams
 
 #: the reference's checkpoint keys of ``AdamWState``'s fields (how JAX
 #: names a NamedTuple's fields in a path)
@@ -75,6 +89,34 @@ def build_batch(cfg: ModelConfig, dcfg: DataConfig, step: int,
     return batch
 
 
+def rank_rows(batch: Dict[str, torch.Tensor], shards: sharding.DataShards,
+              microbatches: int = 1) -> Dict[str, torch.Tensor]:
+    """This data rank's rows of a whole batch: of each microbatch's rows,
+    the ``index``-th of ``count`` equal blocks (so the step's own
+    microbatch slices are the rank's part of each global microbatch);
+    the batch axis is 1 for the ``[3, B, S]`` M-RoPE positions."""
+    out = {}
+    for k, v in batch.items():
+        axis = 1 if k == "mrope_positions" else 0
+        b = v.shape[axis]
+        if b % (microbatches * shards.count):
+            raise ValueError(f"{k}: {b} rows do not split into "
+                             f"{microbatches} microbatch(es) over "
+                             f"{shards.count} data ranks")
+        shape = (v.shape[:axis] + (microbatches, shards.count, -1)
+                 + v.shape[axis + 1:])
+        mine = v.reshape(shape).select(axis + 1, shards.index)
+        out[k] = mine.reshape(v.shape[:axis] + (-1,)
+                              + v.shape[axis + 1:]).contiguous()
+    return out
+
+
+def moment_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The AdamW moments' dtype that the config asks for."""
+    return (torch.bfloat16 if cfg.opt_state_dtype == "bfloat16"
+            else torch.float32)
+
+
 def opt_tree(state: adamw.AdamWState, cfg: ModelConfig,
              placeholders: bool = False) -> dict:
     """The optimizer state as the reference's checkpoint tree."""
@@ -106,11 +148,27 @@ def restore(ckpt: Checkpointer, step: Optional[int], model, state, cfg
 
 
 def save(ckpt: Checkpointer, step: int, model, state, cfg,
-         block: bool = False) -> None:
+         block: bool = False, sharded: Optional[ShardedParams] = None
+         ) -> None:
     """Copy the parameters and the optimizer state to the host and write
-    them as step ``step`` (asynchronously unless ``block``)."""
-    ckpt.save(step, arrays_from_params(dict(model.named_parameters()), cfg),
-              opt_tree(state, cfg), block=block)
+    them as step ``step`` (asynchronously unless ``block``). With
+    ``sharded`` every rank gathers them whole and rank 0 writes; a
+    blocking save returns on every rank once the step is on disk."""
+    if sharded is None:
+        params = dict(model.named_parameters())
+        ckpt.save(step, arrays_from_params(params, cfg),
+                  opt_tree(state, cfg), block=block)
+        return
+    import torch.distributed as dist
+
+    params = sharded.full(sharded.local())
+    state = adamw.AdamWState(state.step, sharded.full(state.mu),
+                             sharded.full(state.nu))
+    if dist.get_rank() == 0:
+        ckpt.save(step, arrays_from_params(params, cfg),
+                  opt_tree(state, cfg), block=block)
+    if block:
+        dist.barrier()
 
 
 def train_config(steps: int, microbatches: int = 1,
@@ -128,18 +186,26 @@ def train_config(steps: int, microbatches: int = 1,
 def train(arch: str, smoke: bool, steps: int, batch_size: int, seq_len: int,
           ckpt_dir: Optional[str], checkpoint_every: int = 50,
           microbatches: int = 1, log_every: int = 10, device=None,
-          learning_rate: float = TrainConfig.learning_rate):
-    """Train ``arch`` for ``steps`` steps (resuming from the latest
-    checkpoint in ``ckpt_dir``); returns the loss of each step run."""
+          learning_rate: float = TrainConfig.learning_rate,
+          layers: Optional[int] = None, return_params: bool = False):
+    """Train ``arch`` (``layers`` deep, if given) for ``steps`` steps
+    (resuming from the latest checkpoint in ``ckpt_dir``) under
+    ``make_host_mesh()``; returns the loss of each step run, and with
+    ``return_params`` also the parameters after the last step, whole, by
+    state-dict key."""
     dev = resolve_device(device, "cuda", "train")
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     tcfg = train_config(steps, microbatches, checkpoint_every, learning_rate)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
                       batch_per_host=batch_size)
 
+    mesh = make_host_mesh()
     model = adapters.init_fn(torch.Generator(device=dev).manual_seed(
         tcfg.seed), cfg)
-    opt_state = adamw.init_state(dict(model.named_parameters()), tcfg)
+    opt_state = adamw.init_state(dict(model.named_parameters()), tcfg,
+                                 moment_dtype(cfg))
     start_step = 0
 
     ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
@@ -147,12 +213,22 @@ def train(arch: str, smoke: bool, steps: int, batch_size: int, seq_len: int,
         start_step = restore(ckpt, None, model, opt_state, cfg)["step"]
         print(f"[train] resumed from step {start_step}")
 
-    step_fn = make_train_step(cfg, tcfg)
+    sharded = None
+    if mesh.device_mesh is not None:
+        sharded = ShardedParams(model, mesh, tcfg.grad_compression)
+        opt_state = adamw.AdamWState(opt_state.step,
+                                     sharded.shard(opt_state.mu),
+                                     sharded.shard(opt_state.nu))
+    step_fn = make_train_step(cfg, tcfg, sharded)
     losses = []
     t0 = time.perf_counter()
     for step in range(start_step, steps):
         batch = build_batch(cfg, dcfg, step, dev)
-        opt_state, metrics = step_fn(model, opt_state, batch)
+        with sharding.set_mesh(mesh, local_batch=True):
+            shards = sharding.data_shards()
+            if shards is not None:
+                batch = rank_rows(batch, shards, microbatches)
+            opt_state, metrics = step_fn(model, opt_state, batch)
         # the loss log reads each step's loss
         losses.append(float(metrics["loss"]))  # host-sync: ok
         if (step + 1) % log_every == 0:
@@ -165,11 +241,15 @@ def train(arch: str, smoke: bool, steps: int, batch_size: int, seq_len: int,
                   flush=True)
             t0 = time.perf_counter()
         if ckpt and (step + 1) % tcfg.checkpoint_every == 0:
-            save(ckpt, step + 1, model, opt_state, cfg)
+            save(ckpt, step + 1, model, opt_state, cfg, sharded=sharded)
     if ckpt:
-        save(ckpt, steps, model, opt_state, cfg, block=True)
+        save(ckpt, steps, model, opt_state, cfg, block=True, sharded=sharded)
         ckpt.wait()
-    return losses
+    if not return_params:
+        return losses
+    if sharded is not None:
+        return losses, sharded.full(sharded.local())
+    return losses, {k: p.detach() for k, p in model.named_parameters()}
 
 
 def main():
@@ -185,10 +265,13 @@ def main():
     ap.add_argument("--lr", type=float, default=TrainConfig.learning_rate,
                     help="peak learning rate (default %(default)s, the "
                     "reference's)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the model to this depth")
     args = ap.parse_args()
     losses = train(args.arch, args.smoke, args.steps, args.batch, args.seq,
                    args.ckpt_dir, microbatches=args.microbatches,
-                   device=args.device, learning_rate=args.lr)
+                   device=args.device, learning_rate=args.lr,
+                   layers=args.layers)
     if losses:
         print(f"[train] final loss {losses[-1]:.4f} (start {losses[0]:.4f})")
 

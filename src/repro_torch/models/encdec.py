@@ -162,7 +162,7 @@ class EncDecLM(LM):
         dt = dtype_of(self.cfg)
         _, t, d = frames.shape
         pos = torch.from_numpy(sinusoids(t, d)).to(frames.device, dt)
-        x = frames.to(dt) + pos[None]
+        x = L.batch_shard(frames.to(dt) + pos[None])
         for bp in self.enc_blocks:
             x = self._run(self._enc_block, x, bp)
         return _norm(x, self.enc_ln, self.cfg)
@@ -170,8 +170,8 @@ class EncDecLM(LM):
     def _decode_train(self, tokens: torch.Tensor, enc_out: torch.Tensor):
         dt = dtype_of(self.cfg)
         s = tokens.shape[1]
-        x = (self.embed.to(dt)[tokens.long()]
-             + self.pos_embed.to(dt)[:s][None])
+        x = L.batch_shard(self.embed.to(dt)[tokens.long()]
+                          + self.pos_embed.to(dt)[:s][None])
         for bp in self.dec_blocks:
             x = self._run(self._dec_block, x, bp, enc_out)
         return _norm(x, self.dec_ln, self.cfg)

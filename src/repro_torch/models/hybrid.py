@@ -95,7 +95,7 @@ class HybridLM(LM):
     def forward(self, tokens: torch.Tensor, return_hidden: bool = False):
         """tokens ``[B, S]`` -> logits ``[B, S, V]``, or ``(hidden,
         lm_head)`` after the final norm with ``return_hidden``."""
-        x = self._embed(tokens)
+        x = L.batch_shard(self._embed(tokens))
         b, s, _ = x.shape
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)

@@ -9,7 +9,8 @@ f32. Where the reference asks XLA for an f32 product of bf16 operands
 (``preferred_element_type=f32``), the port casts the operands to f32
 first: the products of bf16 values are exact in f32, so the two compute
 the same sums. The reference's sharding hints (``batch_shard``,
-``seq_shard``, ``constrain``) have no meaning on one card and are dropped.
+``seq_shard`` and ``lm_head``'s constraint) call
+``parallel.sharding.constrain`` where it does; they change no number.
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel.sharding import Spec, constrain
 
 NEG_INF = -1e30
 
@@ -214,6 +217,33 @@ def dense_init(gen: torch.Generator, shape, in_axis_size: int,
 def lm_head(x: torch.Tensor, head_w: torch.Tensor,
             transpose: bool = False) -> torch.Tensor:
     """Final projection to the vocab, in x's dtype: ``head_w`` is
-    ``[D, V]``, or ``[V, D]`` with ``transpose``."""
+    ``[D, V]``, or ``[V, D]`` with ``transpose``. The ``[B, S, V]``
+    logits are laid out with the vocab over ``"model"``, as the
+    reference pins them."""
     w = head_w.to(x.dtype)
-    return x @ (w.T if transpose else w)
+    return _constrain(x @ (w.T if transpose else w),
+                      (FSDP, None, "model"))
+
+
+#: the data axes of a batch entry in the reference's hints
+FSDP = ("pod", "data")
+
+
+def _constrain(x: torch.Tensor, entries) -> torch.Tensor:
+    # The reference's layout hints, kept at its call sites. On every run
+    # path of the port they change nothing: activations are each rank's
+    # own plain tensors, never DTensors, so ``constrain`` returns them.
+    return constrain(x, Spec(*entries))
+
+
+def batch_shard(x: torch.Tensor) -> torch.Tensor:
+    """Lay the leading (batch) dim over the data axes. A no-op without a
+    mesh, and for the rank-local tensors of a run."""
+    return _constrain(x, (FSDP,) + (None,) * (x.dim() - 1))
+
+
+def seq_shard(x: torch.Tensor) -> torch.Tensor:
+    """Megatron-style sequence parallelism: the ``[B, S, D]`` residual
+    with batch over the data axes and sequence over ``"model"``. A no-op
+    without a mesh."""
+    return _constrain(x, (FSDP, "model", None))

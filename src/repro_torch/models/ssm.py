@@ -244,7 +244,7 @@ class SSMLM(LM):
     def forward(self, tokens: torch.Tensor, return_hidden: bool = False):
         """tokens ``[B, S]`` -> logits ``[B, S, V]``, or ``(hidden, head)``
         after the final norm with ``return_hidden`` (``head`` ``[D, V]``)."""
-        x = self._embed(tokens)
+        x = L.batch_shard(self._embed(tokens))
         remat = self.cfg.remat and torch.is_grad_enabled()
         for bp in self.blocks:
             if remat:

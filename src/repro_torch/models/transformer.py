@@ -216,7 +216,7 @@ class Transformer(LM):
         if extra_embeds is not None:
             # the vlm stub: precomputed patch embeddings before the text
             x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
-        return x
+        return L.batch_shard(x)
 
     def _positions(self, x):
         b, s, _ = x.shape
@@ -227,7 +227,8 @@ class Transformer(LM):
         h, _, _ = _attn_train(L.rms_norm(x, blk.norm1), blk.attn, self.cfg,
                               cos, sin)
         x = x + h
-        return x + _mlp(L.rms_norm(x, blk.norm2), blk.mlp, self.cfg)
+        x = x + _mlp(L.rms_norm(x, blk.norm2), blk.mlp, self.cfg)
+        return L.seq_shard(x) if self.cfg.seq_sharded_residual else x
 
     def forward(self, tokens: torch.Tensor, return_hidden: bool = False,
                 mrope_positions: Optional[torch.Tensor] = None,
@@ -240,6 +241,8 @@ class Transformer(LM):
         x = self._embed(tokens, extra_embeds)
         cos, sin = self._rope(self._positions(x), mrope_positions)
         remat = self.cfg.remat and torch.is_grad_enabled()
+        if self.cfg.seq_sharded_residual:
+            x = L.seq_shard(x)
         for blk in self.blocks:
             if remat:
                 x = checkpoint(self._block, x, blk, cos, sin,

@@ -57,7 +57,7 @@ def cosine_lr(step: torch.Tensor, cfg: TrainConfig) -> torch.Tensor:
     return cfg.learning_rate * warm * (0.1 + 0.9 * cos)
 
 
-def _global_norm(grads: Tree) -> torch.Tensor:
+def global_norm(grads: Tree) -> torch.Tensor:
     # the reference sums the leaves in its pytree order (sorted keys)
     sq = sum(torch.sum(torch.square(grads[k].float())) for k in sorted(grads))
     return torch.sqrt(sq)
@@ -75,14 +75,33 @@ def clip_by_global_norm(grads: Tree, max_norm: float
                         ) -> Tuple[dict, torch.Tensor]:
     """``(grads scaled to a global norm of at most max_norm, the norm)``;
     each leaf keeps its dtype."""
-    gnorm = _global_norm(grads)
+    gnorm = global_norm(grads)
     scale = _clip_scale(gnorm, max_norm)
     return {k: _clip(g, scale) for k, g in grads.items()}, gnorm
 
 
+#: elements a leaf's update works on at once (its f32 temporaries)
+UPDATE_CHUNK = 1 << 26
+
+
+def _update(p, g, m, n, scale, b1, b2, c1, c2, lr, wd) -> None:
+    """One leaf's (or slice's) AdamW update, in place."""
+    gf = _clip(g, scale).float()
+    mf = m.float() * b1 + gf * (1 - b1)
+    nf = n.float() * b2 + gf * gf * (1 - b2)
+    mhat = mf / c1
+    nhat = nf / c2
+    delta = mhat / (torch.sqrt(nhat) + 1e-8)
+    pf = p.float()
+    p.copy_(pf - lr * (delta + wd * pf))
+    m.copy_(mf)
+    n.copy_(nf)
+
+
 @torch.no_grad()
 def apply_updates(params: Tree, grads: Tree, state: AdamWState,
-                  cfg: TrainConfig, ndims: Optional[Mapping[str, int]] = None
+                  cfg: TrainConfig, ndims: Optional[Mapping[str, int]] = None,
+                  gnorm: Optional[torch.Tensor] = None
                   ) -> Tuple[Tree, AdamWState, torch.Tensor, torch.Tensor]:
     """One clipped AdamW step. Returns ``(params, state, lr, grad_norm)``:
     ``params`` and the state's moments are the mappings given, updated in
@@ -91,10 +110,13 @@ def apply_updates(params: Tree, grads: Tree, state: AdamWState,
     ``ndims`` gives the rank that the decay rule reads for a leaf, where it
     is not the tensor's own: the reference stacks a model's blocks
     ``[L, ...]``, so a block's norm scale is a matrix there and decays
-    (``Transformer.reference_ndims``)."""
+    (``Transformer.reference_ndims``). ``gnorm`` is the gradients' global
+    norm where ``grads`` are one rank's slices of them (the sharded step
+    computes it before slicing)."""
     # clip_by_global_norm, one leaf at a time: no second copy of the
     # gradients is held
-    gnorm = _global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = _clip_scale(gnorm, cfg.grad_clip)
     step = state.step + 1
     lr = cosine_lr(step, cfg)
@@ -104,17 +126,19 @@ def apply_updates(params: Tree, grads: Tree, state: AdamWState,
     c2 = 1.0 - torch.pow(b2, stepf)
     for k, p in params.items():
         g, m, n = grads[k], state.mu[k], state.nu[k]
-        gf = _clip(g, scale).float()
-        mf = m.float() * b1 + gf * (1 - b1)
-        nf = n.float() * b2 + gf * gf * (1 - b2)
-        mhat = mf / c1
-        nhat = nf / c2
-        delta = mhat / (torch.sqrt(nhat) + 1e-8)
         # decoupled weight decay on matrices only (ndim >= 2)
         ndim = p.dim() if ndims is None else ndims.get(k, p.dim())
         wd = cfg.weight_decay if ndim >= 2 else 0.0
-        pf = p.float()
-        p.copy_(pf - lr * (delta + wd * pf))
-        m.copy_(mf)
-        n.copy_(nf)
+        args = (scale, b1, b2, c1, c2, lr, wd)
+        if p.numel() <= UPDATE_CHUNK or not all(
+                t.is_contiguous() for t in (p, m, n)):
+            _update(p, g, m, n, *args)
+            continue
+        # elementwise, so a slice at a time gives the same numbers with
+        # f32 temporaries of at most UPDATE_CHUNK elements
+        flat = [t.view(-1) for t in (p, m, n)]
+        gflat = g.reshape(-1)
+        for i in range(0, p.numel(), UPDATE_CHUNK):
+            sl = slice(i, i + UPDATE_CHUNK)
+            _update(flat[0][sl], gflat[sl], flat[1][sl], flat[2][sl], *args)
     return params, AdamWState(step, state.mu, state.nu), lr, gnorm

@@ -44,6 +44,37 @@ SMEM_PER_SM = 233_472
 SMEM_RESERVED_PER_BLOCK = 1_024
 
 
+#: device memory of the H100 SXM: the data sheet's 80 GB of HBM3 (80 GiB
+#: of DRAM). ``hbm_bytes()`` reads what the card itself reports where
+#: there is one; this constant stands for it on the CPU
+HBM_CAPACITY_BYTES = 80 * 2**30
+#: NVLink 4 inside a node of 8 (an HGX H100 board): 900 GB/s a card over
+#: both directions, 450 GB/s each way (NVIDIA's H100 SXM data sheet)
+NVLINK_BYTES_PER_S = 450e9
+#: cards a node joins by NVLink
+NVLINK_DOMAIN = 8
+#: InfiniBand between nodes: one ConnectX-7 NDR port of 400 Gb/s a card
+#: (DGX H100), 50 GB/s each way
+IB_BYTES_PER_S = 50e9
+
+
+def hbm_bytes() -> int:
+    """The card's device memory: ``torch.cuda.get_device_properties``'s
+    ``total_memory`` on a card, :data:`HBM_CAPACITY_BYTES` elsewhere."""
+    import torch
+
+    if torch.cuda.is_available():
+        return int(torch.cuda.get_device_properties(0).total_memory)
+    return HBM_CAPACITY_BYTES
+
+
+def link_bytes_per_s(group: int) -> float:
+    """Each-way rate of a ring collective over ``group`` consecutive
+    cards: NVLink when the group fits in one node, else the InfiniBand
+    port that every hop out of a node crosses."""
+    return NVLINK_BYTES_PER_S if group <= NVLINK_DOMAIN else IB_BYTES_PER_S
+
+
 def bytes_ms(nbytes: float) -> float:
     """Milliseconds to move ``nbytes`` at the memory rate."""
     return nbytes / HBM_BYTES_PER_S * 1e3

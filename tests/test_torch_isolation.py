@@ -84,7 +84,11 @@ def _imports(path):
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
-    ROOT / "examples" / "train_lm_torch.py"],
+    ROOT / "examples" / "train_lm_torch.py",
+    ROOT / "examples" / "serve_lm_torch.py",
+    ROOT / "examples" / "moe_matching_router_torch.py",
+    ROOT / "experiments" / "print_table_torch.py",
+    ROOT / "experiments" / "sharded_step_torch.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_names_no_jax_and_no_reference(path):
     for name in _imports(path):

@@ -70,15 +70,16 @@ def test_configs_equal_reference(arch):
             == dataclasses.asdict(jax_smoke(arch)))
 
 
-@pytest.mark.parametrize("arch", configs.NOT_PORTED)
+@pytest.mark.parametrize("arch", ["llama3-405b", "qwen1.5-110b"])
 def test_unported_arch_raises(arch):
-    """Only the two architectures that need sharding across cards are
-    refused, citing ROADMAP's item 12.3."""
-    assert set(configs.NOT_PORTED) == {"llama3-405b", "qwen1.5-110b"}
-    with pytest.raises(NotImplementedError, match=r"item 12\.3"):
-        configs.get_config(arch)
+    """The registry refuses no architecture of the reference's: the two
+    that the sharding layer brought in resolve, and only an unknown arch
+    raises (``KeyError``)."""
+    assert configs.get_config(arch).name == arch
     with pytest.raises(KeyError):
         configs.get_config("no-such-arch")
+    with pytest.raises(KeyError):
+        configs.get_smoke_config(arch + "-no-such")
 
 
 # ----------------------------------------------------------------- layers --

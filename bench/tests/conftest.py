@@ -1,0 +1,9 @@
+"""The benchmark's CPU tests: ``python -m pytest bench/tests -q`` from the
+repository root. Tests marked ``cuda`` need a card and skip without one."""
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (str(ROOT / "src"), str(ROOT)):
+    if p not in sys.path:
+        sys.path.insert(0, p)

@@ -1,0 +1,8 @@
+"""Host seconds of the schedule precompute's phase ``schedule.pairs`` (the
+global tier's grouping by pair of blocks), in the last schedule built: the
+program's span, from its registry (set-up is not traced)."""
+from bench.metrics._spans import last_s
+
+
+def read(record: dict):
+    return last_s(record, "schedule.pairs")

@@ -36,6 +36,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.statespec import DEFAULT
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mutants.cu"
@@ -91,17 +92,18 @@ EXPECTED_RULE = {**{k: m.rule for k, m in KERNEL_MUTATIONS.items()},
 
 MUTATION_NAMES = sorted(KERNEL_MUTATIONS) + sorted(SOURCE_MUTATIONS)
 
-_LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_MUTATIONS}
+#: the mutant kernels, whose launches are the registry's counters
+#: ``launches.<kernel>``
+KERNELS = tuple(KERNEL_MUTATIONS[n].kernel for n in KERNEL_MUTATIONS)
 
 
 def launch_counts() -> Dict[str, int]:
     """Launches per mutant kernel since the last reset."""
-    return {KERNEL_MUTATIONS[n].kernel: c for n, c in _LAUNCHES.items()}
+    return tracing.launches(KERNELS)
 
 
 def reset_launch_counts() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    tracing.reset(f"launches.{k}" for k in KERNELS)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -139,7 +141,7 @@ def _launched(name: str, err: int) -> None:
         msg = _library().skipper_error_string(err).decode()
         raise RuntimeError(f"mutant {name} launch failed: CUDA error {err} "
                            f"({msg})")
-    _LAUNCHES[name] += 1
+    tracing.launched(KERNEL_MUTATIONS[name].kernel)
 
 
 def window_tier(name: str, u_rows: torch.Tensor, v_rows: torch.Tensor,

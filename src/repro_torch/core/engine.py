@@ -57,6 +57,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.statespec import StateSpec, resolve as resolve_spec
 
 ACC = 0
@@ -356,6 +357,30 @@ def run_first_claim_rounds(
         matched = matched | commit
         conflicts = conflicts + blocked.to(torch.int32)
     return matched, conflicts
+
+
+def count_fallback(prefix: str, conflicts: torch.Tensor, vector_rounds: int,
+                   edges) -> None:
+    """While a profiler records, add a tier's ``edges`` (a host integer or
+    a device scalar) to the counter ``<prefix>.edges`` and the edges its
+    exact fallback decides to ``<prefix>.fallback_edges``
+    (``repro_torch/tracing.py``). An edge is left to the fallback exactly
+    when it was free and blocked in every vector round, that is when its
+    conflicts equal ``vector_rounds`` (padding has none); with no vector
+    round every edge is. ``conflicts`` is the tier's per-slot output, or
+    ``None`` for a tier that has no slots (and 0 ``edges``): both counters
+    exist from a tier's first call on, so that a counter that is missing
+    means nothing was counted. The count is the span
+    ``<prefix>.fallback_count``, which names its device time in the
+    trace."""
+    if not tracing.recording():
+        return
+    with tracing.span(f"{prefix}.fallback_count"):
+        tracing.count_device(f"{prefix}.edges", edges)
+        tracing.count_device(
+            f"{prefix}.fallback_edges",
+            edges if conflicts is None or not vector_rounds
+            else (conflicts == vector_rounds).sum())
 
 
 def greedy_fallback_rounds(

@@ -33,6 +33,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import tracing
+from repro_torch.core import engine
 from repro_torch.core.statespec import StateSpec, resolve as resolve_spec
 from repro_torch.core.types import Counters, MatchResult
 from repro_torch.core.validate import check_matching
@@ -45,6 +47,7 @@ CONFLICT_METHODS = ("auto", "scatter", "sort", "matrix")
 __all__ = ["skipper", "stream_tiles", "tiles_on_card", "CONFLICT_METHODS"]
 
 
+@tracing.spanned("skipper")
 def skipper(
     edges: EdgeList,
     tile_size: int = 512,
@@ -70,6 +73,12 @@ def skipper(
     ``verify=True`` runs ``check_matching`` on the result and raises
     ``RuntimeError`` unless it is a valid maximal matching (this waits for
     the card).
+
+    Tracing (``repro_torch/tracing.py``): the call is the span ``skipper``,
+    its steps ``skipper.stream_tiles``, ``skipper.global_tier`` (with the
+    kernel's id check, ``kernels.id_check``) and ``skipper.gather``; while a
+    profiler records, the valid edges and those the exact fallback decides
+    add to ``skipper.edges`` / ``skipper.fallback_edges``.
     """
     if conflict_method not in CONFLICT_METHODS:
         raise ValueError(f"unknown conflict_method {conflict_method!r}; one "
@@ -77,38 +86,48 @@ def skipper(
     dev = resolve_device(device, "cuda", "skipper")
     spec = resolve_spec(spec)
     n, m = edges.num_vertices, edges.num_edges
-    ut, vt = stream_tiles(edges.to(dev), tile_size, dispersed)
-    if dev.type == "cuda":
-        row = torch.zeros((n,), dtype=spec.vmem_dtype, device=dev)
-        matched, conflicts = tiles_on_card(row, ut, vt, vector_rounds, spec)
-        state = row.to(spec.at_rest_dtype)
-        conflicts = conflicts.to(torch.int32)
-    else:
-        from repro_torch.kernels.skipper_match.ref import ref_skipper
+    with tracing.span("skipper.stream_tiles"):
+        ut, vt = stream_tiles(edges.to(dev), tile_size, dispersed)
+    with tracing.span("skipper.global_tier"):
+        if dev.type == "cuda":
+            row = torch.zeros((n,), dtype=spec.vmem_dtype, device=dev)
+            matched, conflicts = tiles_on_card(row, ut, vt, vector_rounds,
+                                               spec)
+            state = row.to(spec.at_rest_dtype)
+            conflicts = conflicts.to(torch.int32)
+        else:
+            from repro_torch.kernels.skipper_match.ref import ref_skipper
 
-        state = torch.zeros((n,), dtype=spec.at_rest_dtype, device=dev)
-        matched, conflicts = ref_skipper(
-            state, ut, vt, vector_rounds=vector_rounds,
-            conflict_method=conflict_method)
+            state = torch.zeros((n,), dtype=spec.at_rest_dtype, device=dev)
+            matched, conflicts = ref_skipper(
+                state, ut, vt, vector_rounds=vector_rounds,
+                conflict_method=conflict_method)
 
-    if dispersed:
-        # matched[t, l] is stream index l * num_tiles + t
-        mask = matched.T.reshape(-1)[:m]
-        conflicts = conflicts.T.reshape(-1)[:m]
-    else:
-        mask = matched.reshape(-1)[:m]
-        conflicts = conflicts.reshape(-1)[:m]
-    # the reference sums these per tile in int32; a sum taken wide and
-    # narrowed once wraps to the same value
-    nvalid = (ut >= 0).sum()
-    nconf = conflicts.sum()
-    counters = Counters(
-        edge_reads=torch.tensor(m, dtype=torch.int32, device=dev),
-        state_loads=(2 * nvalid + 2 * nconf).to(torch.int32),
-        state_stores=(2 * mask.sum()).to(torch.int32),
-        rounds=torch.tensor(1, dtype=torch.int32, device=dev),
-    )
-    result = MatchResult(match_mask=mask, state=state, counters=counters)
+    def i32(x):
+        if dev.type == "cuda":
+            tracing.count("h2d_bytes", 4)
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    with tracing.span("skipper.gather"):
+        if dispersed:
+            # matched[t, l] is stream index l * num_tiles + t
+            mask = matched.T.reshape(-1)[:m]
+            conflicts = conflicts.T.reshape(-1)[:m]
+        else:
+            mask = matched.reshape(-1)[:m]
+            conflicts = conflicts.reshape(-1)[:m]
+        # the reference sums these per tile in int32; a sum taken wide and
+        # narrowed once wraps to the same value
+        nvalid = (ut >= 0).sum()
+        engine.count_fallback("skipper", conflicts, vector_rounds, nvalid)
+        nconf = conflicts.sum()
+        counters = Counters(
+            edge_reads=i32(m),
+            state_loads=(2 * nvalid + 2 * nconf).to(torch.int32),
+            state_stores=(2 * mask.sum()).to(torch.int32),
+            rounds=i32(1),
+        )
+        result = MatchResult(match_mask=mask, state=state, counters=counters)
     if verify:
         chk = check_matching(edges, mask)
         # the verify path is a host check by definition

@@ -67,6 +67,7 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.graphs.types import EdgeList
 from repro_torch.graphs.reorder import Reordering, reorder_vertices
 
@@ -198,6 +199,7 @@ def _dispersed_within(idx: np.ndarray, tiles: int, tile_size: int) -> np.ndarray
     return idx.reshape(tile_size, tiles).T.reshape(-1)
 
 
+@tracing.spanned("schedule")
 def build_window_schedule(
     edges: EdgeList,
     window: int = 2048,
@@ -218,147 +220,164 @@ def build_window_schedule(
     ``reordering``); ``coalesce_sparse`` routes windows whose row occupancy
     would be below ``sparse_occupancy`` (relative to the densest window's
     padded row) into the global tier instead of padding them.
+
+    Tracing (``repro_torch/tracing.py``): the call is the span
+    ``schedule``, its phases ``schedule.reorder`` (canonical ids, the
+    policy and the relabel), ``.split`` (dense and sparse windows),
+    ``.window_rows``, ``.pairs`` (the global tier's block-pair grouping)
+    and ``.gather_map`` (``stream_src``).
     """
-    n = edges.num_vertices
-    u0, v0 = edges.to_numpy()
-    u = np.minimum(u0, v0).astype(np.int64)   # canonical: u <= v
-    v = np.maximum(u0, v0).astype(np.int64)
-    m = int(u.shape[0])
-    valid = (u >= 0) & (u != v)
+    with tracing.span("schedule.reorder"):
+        n = edges.num_vertices
+        u0, v0 = edges.to_numpy()
+        u = np.minimum(u0, v0).astype(np.int64)   # canonical: u <= v
+        v = np.maximum(u0, v0).astype(np.int64)
+        m = int(u.shape[0])
+        valid = (u >= 0) & (u != v)
 
-    if reordering is None and reorder != "none":
-        reordering = reorder_vertices(edges, reorder, window=window)
-    perm = inv = None
-    if reordering is not None and reordering.policy != "none":
-        perm = reordering.perm
-        inv = reordering.inv
-        reorder = reordering.policy
-        u = np.where(valid, perm[np.where(valid, u, 0)], u)
-        v = np.where(valid, perm[np.where(valid, v, 0)], v)
-    else:
-        reorder = "none"
+        if reordering is None and reorder != "none":
+            reordering = reorder_vertices(edges, reorder, window=window)
+        perm = inv = None
+        if reordering is not None and reordering.policy != "none":
+            perm = reordering.perm
+            inv = reordering.inv
+            reorder = reordering.policy
+            u = np.where(valid, perm[np.where(valid, u, 0)], u)
+            v = np.where(valid, perm[np.where(valid, v, 0)], v)
+        else:
+            reorder = "none"
 
-    wu = np.where(valid, u // window, 0)
-    wv = np.where(valid, v // window, 0)
-    intra = valid & (wu == wv)
-    num_windows = max(1, -(-n // window))
+    with tracing.span("schedule.split"):
+        wu = np.where(valid, u // window, 0)
+        wv = np.where(valid, v // window, 0)
+        intra = valid & (wu == wv)
+        num_windows = max(1, -(-n // window))
 
-    counts = np.bincount(wu[intra], minlength=num_windows)
-    max_count = int(counts.max()) if m else 0
+        counts = np.bincount(wu[intra], minlength=num_windows)
+        max_count = int(counts.max()) if m else 0
 
-    # ---- two-tier split: dense windows get grid rows, sparse ones coalesce
-    if coalesce_sparse and num_windows > 1 and max_count > 0:
-        tiles_max = -(-max_count // tile_size)
-        occupancy = counts / (tiles_max * tile_size)
-        dense = occupancy >= sparse_occupancy
-        dense[np.argmax(counts)] = True     # densest window is always a row
-        dense &= counts > 0
-        if not dense.any():
-            dense = counts > 0
-    else:
-        dense = counts > 0 if max_count > 0 else np.zeros(num_windows, bool)
-        if not dense.any():
-            dense = np.ones(num_windows, bool)
-            dense[1:] = False
-    dense_ids = np.nonzero(dense)[0]
-    if dense_ids.size == 0:
-        dense_ids = np.array([0], np.int64)
-    num_rows = int(dense_ids.size)
-    dense_max = int(counts[dense_ids].max()) if m else 0
-    tiles_per_window = max(1, -(-dense_max // tile_size)) if m else 1
-    slots = tiles_per_window * tile_size
+        # ---- two-tier split: dense windows get grid rows, sparse ones
+        # coalesce
+        if coalesce_sparse and num_windows > 1 and max_count > 0:
+            tiles_max = -(-max_count // tile_size)
+            occupancy = counts / (tiles_max * tile_size)
+            dense = occupancy >= sparse_occupancy
+            dense[np.argmax(counts)] = True  # densest window is always a row
+            dense &= counts > 0
+            if not dense.any():
+                dense = counts > 0
+        else:
+            dense = (counts > 0 if max_count > 0
+                     else np.zeros(num_windows, bool))
+            if not dense.any():
+                dense = np.ones(num_windows, bool)
+                dense[1:] = False
+        dense_ids = np.nonzero(dense)[0]
+        if dense_ids.size == 0:
+            dense_ids = np.array([0], np.int64)
+        num_rows = int(dense_ids.size)
+        dense_max = int(counts[dense_ids].max()) if m else 0
+        tiles_per_window = max(1, -(-dense_max // tile_size)) if m else 1
+        slots = tiles_per_window * tile_size
 
-    coalesced = intra & ~dense[wu]          # sparse windows' edges
-    windowed = intra & dense[wu]
-    global_tier = valid & ~windowed         # boundary + coalesced, stream order
+        coalesced = intra & ~dense[wu]          # sparse windows' edges
+        windowed = intra & dense[wu]
+        # boundary + coalesced, stream order
+        global_tier = valid & ~windowed
 
-    u_tiles = np.full((num_rows, slots), -1, np.int32)
-    v_tiles = np.full((num_rows, slots), -1, np.int32)
-    edge_index = np.full((num_rows, slots), -1, np.int32)
+    with tracing.span("schedule.window_rows"):
+        u_tiles = np.full((num_rows, slots), -1, np.int32)
+        v_tiles = np.full((num_rows, slots), -1, np.int32)
+        edge_index = np.full((num_rows, slots), -1, np.int32)
 
-    # stable bucket: windowed edges of window w in stream order
-    order = np.nonzero(windowed)[0]
-    win_of = wu[order]
-    sort = np.argsort(win_of, kind="stable")
-    order = order[sort]
-    wcounts = counts * dense                # windowed edges per window
-    starts = np.concatenate([[0], np.cumsum(wcounts[dense_ids])])
-    for r, w in enumerate(dense_ids):
-        sel = order[starts[r] : starts[r + 1]]
-        if sel.size == 0:
-            continue
-        pad = np.full((slots,), -1, np.int64)
-        pad[: sel.size] = sel
-        if dispersed:
-            pad = _dispersed_within(pad, tiles_per_window, tile_size)
-        present = pad >= 0
-        src = np.where(present, pad, 0)
-        base = w * window
-        u_tiles[r] = np.where(present, u[src] - base, -1).astype(np.int32)
-        v_tiles[r] = np.where(present, v[src] - base, -1).astype(np.int32)
-        edge_index[r] = np.where(present, pad, -1).astype(np.int32)
+        # stable bucket: windowed edges of window w in stream order
+        order = np.nonzero(windowed)[0]
+        win_of = wu[order]
+        sort = np.argsort(win_of, kind="stable")
+        order = order[sort]
+        wcounts = counts * dense                # windowed edges per window
+        starts = np.concatenate([[0], np.cumsum(wcounts[dense_ids])])
+        for r, w in enumerate(dense_ids):
+            sel = order[starts[r] : starts[r + 1]]
+            if sel.size == 0:
+                continue
+            pad = np.full((slots,), -1, np.int64)
+            pad[: sel.size] = sel
+            if dispersed:
+                pad = _dispersed_within(pad, tiles_per_window, tile_size)
+            present = pad >= 0
+            src = np.where(present, pad, 0)
+            base = w * window
+            u_tiles[r] = np.where(present, u[src] - base, -1).astype(np.int32)
+            v_tiles[r] = np.where(present, v[src] - base, -1).astype(np.int32)
+            edge_index[r] = np.where(present, pad, -1).astype(np.int32)
 
-    # ---- global tier: block-pair grouping (DESIGN.md §10) ----------------
-    # Group the global-tier stream by the (u-window, v-window) pair of each
-    # edge — canonical u <= v gives blk_u <= blk_v — in lexicographic pair
-    # order, STABLE within a pair (the stream stays a genuine single pass:
-    # each edge is decided once, in a deterministic schedule order). Each
-    # pair group is padded to a tile multiple so every epilogue tile touches
-    # exactly one pair and the kernel streams just two window-sized state
-    # blocks per grid step instead of the full flattened state.
-    bsel = np.nonzero(global_tier)[0]
-    nb = int(bsel.size)
-    if nb:
-        ub, vb = u[bsel], v[bsel]
-        pu, pv = ub // window, vb // window
-        pair_key = pu * num_windows + pv
-        order_b = np.argsort(pair_key, kind="stable")
-        bsel, ub, vb = bsel[order_b], ub[order_b], vb[order_b]
-        pu, pv = pu[order_b], pv[order_b]
-        # pair run boundaries -> per-pair tile padding
-        starts_b = np.concatenate(
-            [[0], np.nonzero(np.diff(pair_key[order_b]))[0] + 1, [nb]]
-        )
-        sizes = np.diff(starts_b)
-        padded_sizes = -(-sizes // tile_size) * tile_size
-        nb_pad = int(padded_sizes.sum())
-        # grouped slot of in-pair position k of pair p: pad_start[p] + k
-        pad_starts = np.concatenate([[0], np.cumsum(padded_sizes)])[:-1]
-        slot_of = np.repeat(pad_starts - starts_b[:-1], sizes) + np.arange(nb)
-        boundary_u = np.full((nb_pad,), -1, np.int32)
-        boundary_v = np.full((nb_pad,), -1, np.int32)
-        boundary_index = np.full((nb_pad,), -1, np.int32)
-        boundary_ulocal = np.full((nb_pad,), -1, np.int32)
-        boundary_vlocal = np.full((nb_pad,), -1, np.int32)
-        boundary_u[slot_of] = ub
-        boundary_v[slot_of] = vb
-        boundary_index[slot_of] = bsel.astype(np.int32)
-        cross = pu != pv
-        boundary_ulocal[slot_of] = (ub - pu * window).astype(np.int32)
-        boundary_vlocal[slot_of] = (
-            vb - pv * window + np.where(cross, window, 0)
-        ).astype(np.int32)
-        # per-tile pair block ids (every tile sits inside one pair group)
-        nb_tiles = nb_pad // tile_size
-        blk_of_pair_tile = np.repeat(
-            np.arange(len(sizes)), padded_sizes // tile_size
-        )
-        boundary_blk_u = pu[starts_b[:-1]][blk_of_pair_tile].astype(np.int32)
-        boundary_blk_v = pv[starts_b[:-1]][blk_of_pair_tile].astype(np.int32)
-        assert boundary_blk_u.shape == (nb_tiles,)
-    else:
-        nb_pad = 0
-        boundary_u = boundary_v = boundary_index = np.zeros((0,), np.int32)
-        boundary_ulocal = boundary_vlocal = np.zeros((0,), np.int32)
-        boundary_blk_u = boundary_blk_v = np.zeros((0,), np.int32)
+    with tracing.span("schedule.pairs"):
+        # ---- global tier: block-pair grouping (DESIGN.md §10) ------------
+        # Group the global-tier stream by the (u-window, v-window) pair of
+        # each edge — canonical u <= v gives blk_u <= blk_v — in
+        # lexicographic pair order, STABLE within a pair (the stream stays a
+        # genuine single pass: each edge is decided once, in a deterministic
+        # schedule order). Each pair group is padded to a tile multiple so
+        # every epilogue tile touches exactly one pair and the kernel streams
+        # just two window-sized state blocks per grid step instead of the
+        # full flattened state.
+        bsel = np.nonzero(global_tier)[0]
+        nb = int(bsel.size)
+        if nb:
+            ub, vb = u[bsel], v[bsel]
+            pu, pv = ub // window, vb // window
+            pair_key = pu * num_windows + pv
+            order_b = np.argsort(pair_key, kind="stable")
+            bsel, ub, vb = bsel[order_b], ub[order_b], vb[order_b]
+            pu, pv = pu[order_b], pv[order_b]
+            # pair run boundaries -> per-pair tile padding
+            starts_b = np.concatenate(
+                [[0], np.nonzero(np.diff(pair_key[order_b]))[0] + 1, [nb]]
+            )
+            sizes = np.diff(starts_b)
+            padded_sizes = -(-sizes // tile_size) * tile_size
+            nb_pad = int(padded_sizes.sum())
+            # grouped slot of in-pair position k of pair p: pad_start[p] + k
+            pad_starts = np.concatenate([[0], np.cumsum(padded_sizes)])[:-1]
+            slot_of = (np.repeat(pad_starts - starts_b[:-1], sizes)
+                       + np.arange(nb))
+            boundary_u = np.full((nb_pad,), -1, np.int32)
+            boundary_v = np.full((nb_pad,), -1, np.int32)
+            boundary_index = np.full((nb_pad,), -1, np.int32)
+            boundary_ulocal = np.full((nb_pad,), -1, np.int32)
+            boundary_vlocal = np.full((nb_pad,), -1, np.int32)
+            boundary_u[slot_of] = ub
+            boundary_v[slot_of] = vb
+            boundary_index[slot_of] = bsel.astype(np.int32)
+            cross = pu != pv
+            boundary_ulocal[slot_of] = (ub - pu * window).astype(np.int32)
+            boundary_vlocal[slot_of] = (
+                vb - pv * window + np.where(cross, window, 0)
+            ).astype(np.int32)
+            # per-tile pair block ids (every tile sits inside one pair group)
+            nb_tiles = nb_pad // tile_size
+            blk_of_pair_tile = np.repeat(
+                np.arange(len(sizes)), padded_sizes // tile_size
+            )
+            first = starts_b[:-1]
+            boundary_blk_u = pu[first][blk_of_pair_tile].astype(np.int32)
+            boundary_blk_v = pv[first][blk_of_pair_tile].astype(np.int32)
+            assert boundary_blk_u.shape == (nb_tiles,)
+        else:
+            nb_pad = 0
+            boundary_u = boundary_v = boundary_index = np.zeros((0,), np.int32)
+            boundary_ulocal = boundary_vlocal = np.zeros((0,), np.int32)
+            boundary_blk_u = boundary_blk_v = np.zeros((0,), np.int32)
 
-    # stream -> decision-slot gather map (see WindowSchedule.stream_src)
-    slots_flat = num_rows * slots
-    stream_src = np.full((m,), slots_flat + nb_pad, np.int32)
-    rr, ss = np.nonzero(edge_index >= 0)
-    stream_src[edge_index[rr, ss]] = (rr * slots + ss).astype(np.int32)
-    if nb:
-        stream_src[bsel] = (slots_flat + slot_of).astype(np.int32)
+    with tracing.span("schedule.gather_map"):
+        # stream -> decision-slot gather map (see WindowSchedule.stream_src)
+        slots_flat = num_rows * slots
+        stream_src = np.full((m,), slots_flat + nb_pad, np.int32)
+        rr, ss = np.nonzero(edge_index >= 0)
+        stream_src[edge_index[rr, ss]] = (rr * slots + ss).astype(np.int32)
+        if nb:
+            stream_src[bsel] = (slots_flat + slot_of).astype(np.int32)
 
     return WindowSchedule(
         window=window,

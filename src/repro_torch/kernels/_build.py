@@ -10,7 +10,9 @@ lies nvcc's log (for a library, the ptxas report of ``-Xptxas=-v``).
 
 :func:`build` takes several sources and runs one ``nvcc`` for each, all
 started together; with ``ptx=True`` it writes each source's PTX instead
-(the analyzer reads both).
+(the analyzer reads both). Each call that starts nvcc waits for it inside
+the span ``kernels.build`` (``repro_torch/tracing.py``), so a kernel built
+again inside a traced run shows by name.
 """
 from __future__ import annotations
 
@@ -22,8 +24,11 @@ import re
 import shutil
 import subprocess
 import time
+from contextlib import nullcontext
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
+
+from repro_torch import tracing
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
@@ -110,16 +115,17 @@ def build(*sources: Path, ptx: bool = False) -> Dict[str, Dict[str, object]]:
                                 stderr=subprocess.STDOUT, text=True)
         running.append((source, out, tmp, proc, time.perf_counter()))
     failed = []
-    for source, out, tmp, proc, t0 in running:
-        log, _ = proc.communicate()
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failed.append(f"{source}: nvcc exit {proc.returncode}\n{log}")
-            continue
-        _log_path(out).write_text(log)
-        os.replace(tmp, out)
-        results[str(source)] = {"path": str(out), "seconds": seconds,
-                                "log": log}
+    with tracing.span("kernels.build") if running else nullcontext():
+        for source, out, tmp, proc, t0 in running:
+            log, _ = proc.communicate()
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0:
+                failed.append(f"{source}: nvcc exit {proc.returncode}\n{log}")
+                continue
+            _log_path(out).write_text(log)
+            os.replace(tmp, out)
+            results[str(source)] = {"path": str(out), "seconds": seconds,
+                                    "log": log}
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return results

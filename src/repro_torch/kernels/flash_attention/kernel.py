@@ -30,6 +30,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import MAX_SMEM_BYTES
 from repro_torch.kernels.flash_attention import ref
@@ -75,8 +76,9 @@ TF32_INSTANCES = ((64, "float32"), (80, "float32"), (128, "float32"),
 #: threads of one pre-pass block
 SPLIT_THREADS = 256
 
-_LAUNCHES: Dict[str, int] = {FLASH: 0, FLASH_WGMMA: 0, FLASH_TF32: 0,
-                             FLASH_SPLIT: 0}
+#: the kernels whose launches :func:`launch_counts` reports (the registry's
+#: counters ``launches.<kernel>``)
+KERNELS = (FLASH, FLASH_WGMMA, FLASH_TF32, FLASH_SPLIT)
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -84,12 +86,11 @@ _I = ctypes.c_int
 
 def launch_counts() -> Dict[str, int]:
     """Launches since the last :func:`reset_launch_counts`."""
-    return dict(_LAUNCHES)
+    return tracing.launches(KERNELS)
 
 
 def reset_launch_counts() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    tracing.reset(f"launches.{k}" for k in KERNELS)
 
 
 def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
@@ -255,7 +256,7 @@ def split_tf32_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         msg = lib.flash_attention_tf32_error_string(err).decode()
         raise RuntimeError(f"{FLASH_SPLIT} launch failed: CUDA error {err} "
                            f"({msg})")
-    _LAUNCHES[FLASH_SPLIT] += 1
+    tracing.launched(FLASH_SPLIT)
     return planes
 
 
@@ -309,7 +310,7 @@ def tf32x3_on_planes(planes: Dict[str, torch.Tensor], out: torch.Tensor,
         msg = lib.flash_attention_tf32_error_string(err).decode()
         raise RuntimeError(f"{FLASH_TF32} launch failed: CUDA error {err} "
                            f"({msg})")
-    _LAUNCHES[FLASH_TF32] += 1
+    tracing.launched(FLASH_TF32)
     return out
 
 
@@ -341,7 +342,7 @@ def flash_attention_cuda_cores(q: torch.Tensor, k: torch.Tensor,
     if err != 0:
         msg = _library().flash_attention_error_string(err).decode()
         raise RuntimeError(f"{FLASH} launch failed: CUDA error {err} ({msg})")
-    _LAUNCHES[FLASH] += 1
+    tracing.launched(FLASH)
     return out
 
 
@@ -384,5 +385,5 @@ def _launch_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         msg = lib.flash_attention_wgmma_error_string(err).decode()
         raise RuntimeError(f"{FLASH_WGMMA} launch failed: CUDA error {err} "
                            f"({msg})")
-    _LAUNCHES[FLASH_WGMMA] += 1
+    tracing.launched(FLASH_WGMMA)
     return out

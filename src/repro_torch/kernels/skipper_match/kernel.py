@@ -32,7 +32,9 @@ their kernel on the current stream, or raise; given CPU tensors they run
 the plain version from ``ref.py``. The ``_sync`` wrappers take CUDA
 tensors only. Each checks device, dtype, shape, contiguity, id ranges and
 the shared-memory size, raises on a launch error, and adds one to its
-kernel's launch count each time it launches it.
+kernel's launch count each time it launches it (the registry's counter
+``launches.<kernel>``, ``repro_torch/tracing.py``). The id range checks wait
+for the card, each inside the span ``kernels.id_check``.
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.statespec import StateSpec, resolve as resolve_spec
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import MAX_SMEM_BYTES
@@ -100,8 +103,9 @@ PROFILE_FIELDS = ("wait_and_ids", "state_rows", "tile_body",
                   "counters_release_refill", "free_tiles",
                   "tile_body_in_free_tiles", "free_rounds", "total")
 
-_LAUNCHES: Dict[str, int] = {WINDOW_TIER: 0, WINDOW_ASYNC: 0, BOUNDARY: 0,
-                             BOUNDARY_ASYNC: 0}
+#: the kernels whose launches :func:`launch_counts` reports (the registry's
+#: counters ``launches.<kernel>``)
+KERNELS = (WINDOW_TIER, WINDOW_ASYNC, BOUNDARY, BOUNDARY_ASYNC)
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -109,12 +113,11 @@ _I = ctypes.c_int
 
 def launch_counts() -> Dict[str, int]:
     """Launches per kernel since the last :func:`reset_launch_counts`."""
-    return dict(_LAUNCHES)
+    return tracing.launches(KERNELS)
 
 
 def reset_launch_counts() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    tracing.reset(f"launches.{k}" for k in KERNELS)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -287,9 +290,10 @@ def _check_profile(profile, fields, device) -> None:
 
 
 def _check_window_ids(u_rows, v_rows, window) -> None:
-    ids_ok = _ids_ok(u_rows, v_rows, window, window)
-    _require(bool(ids_ok),  # host-sync: ok — ids index device memory
-             f"edge ids out of range: ids must lie in [0, {window}), "
+    with tracing.span("kernels.id_check"):
+        ids_ok = _ids_ok(u_rows, v_rows, window, window)
+        ok = bool(ids_ok)  # host-sync: ok — ids index device memory
+    _require(ok, f"edge ids out of range: ids must lie in [0, {window}), "
              "padding is (-1, -1)")
 
 
@@ -322,7 +326,7 @@ def _launch_window_sync(u_rows, v_rows, state_in, tile_size, vector_rounds,
              num_rows, slots // tile_size, tile_size, window, vector_rounds,
              int(fallback), smem, stream)
     _check_launch(WINDOW_TIER, err)
-    _LAUNCHES[WINDOW_TIER] += 1
+    tracing.launched(WINDOW_TIER)
     return states, matched, conflicts
 
 
@@ -395,7 +399,7 @@ def window_tier(
              int(fallback), stages, smem,
              None if profile is None else profile.data_ptr(), stream)
     _check_launch(WINDOW_ASYNC, err)
-    _LAUNCHES[WINDOW_ASYNC] += 1
+    tracing.launched(WINDOW_ASYNC)
     if profile is not None:  # the rest of the loop, after the kernel
         profile[4] = profile[-1] - profile[:4].sum()
     return states, matched, conflicts
@@ -444,11 +448,12 @@ def _boundary_args(state_rows, blk_u, blk_v, u_tiles, v_tiles, spec,
 
 def _check_boundary_ids(blk_u, blk_v, u_tiles, v_tiles, num_windows,
                         window) -> None:
-    blocks_ok = ((blk_u >= 0) & (blk_u < num_windows) & (blk_v >= 0)
-                 & (blk_v < num_windows)).all()
-    ids_ok = _ids_ok(u_tiles, v_tiles, window, 2 * window) & blocks_ok
-    _require(bool(ids_ok),  # host-sync: ok — ids index device memory
-             f"ids out of range: u must lie in [0, {window}), v in "
+    with tracing.span("kernels.id_check"):
+        blocks_ok = ((blk_u >= 0) & (blk_u < num_windows) & (blk_v >= 0)
+                     & (blk_v < num_windows)).all()
+        ids_ok = _ids_ok(u_tiles, v_tiles, window, 2 * window) & blocks_ok
+        ok = bool(ids_ok)  # host-sync: ok — ids index device memory
+    _require(ok, f"ids out of range: u must lie in [0, {window}), v in "
              f"[0, {2 * window}), padding is (-1, -1), pair blocks in "
              f"[0, {num_windows})")
 
@@ -547,7 +552,7 @@ def boundary_tier(
              vector_rounds, int(fallback), int(staged), smem,
              None if profile is None else profile.data_ptr(), stream)
     _check_launch(BOUNDARY_ASYNC, err)
-    _LAUNCHES[BOUNDARY_ASYNC] += 1
+    tracing.launched(BOUNDARY_ASYNC)
     return matched, conflicts
 
 
@@ -587,5 +592,5 @@ def boundary_tier_sync(
              conflicts.data_ptr(), num_tiles, tile_size, window,
              vector_rounds, int(fallback), stream)
     _check_launch(BOUNDARY, err)
-    _LAUNCHES[BOUNDARY] += 1
+    tracing.launched(BOUNDARY)
     return matched, conflicts

@@ -23,6 +23,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import engine
 from repro_torch.core.statespec import StateSpec, resolve as resolve_spec
 from repro_torch.core.types import Counters, MatchResult
@@ -93,6 +94,7 @@ def skipper_match_window(
     return state[0], matched[0, :m], conflicts[0, :m]
 
 
+@tracing.spanned("skipper_match")
 def skipper_match(
     edges: Optional[EdgeList] = None,
     window: int = 2048,
@@ -142,6 +144,14 @@ def skipper_match(
 
     The report's reads and ``verify`` wait for the card.
 
+    Tracing (``repro_torch/tracing.py``): the call is the span
+    ``skipper_match``, its steps the spans ``skipper_match.copy`` (each
+    ``put`` of a schedule array), ``.window_tier``, ``.global_tier``,
+    ``.gather`` (to stream order and original ids) and ``.counters``; the
+    bytes it moves to the card add to ``h2d_bytes``, and while a profiler
+    records each tier adds its edges and the edges its exact fallback
+    decides to ``skipper_match.<tier>.edges`` / ``.fallback_edges``.
+
     Returns ``result`` [, ``conflicts`` int32[|E|] if ``with_conflicts``]
     [, ``report`` if ``on_fault != "raise"``].
     """
@@ -169,7 +179,11 @@ def skipper_match(
         )
 
     def put(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+        with tracing.span("skipper_match.copy"):
+            t = torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+        if dev.type == "cuda":
+            tracing.count("h2d_bytes", t.nbytes)
+        return t
 
     s = schedule
     window, tile_size = s.window, s.tile_size
@@ -177,77 +191,94 @@ def skipper_match(
     nb_tiles = s.num_boundary_tiles
 
     # window tier: dense rows, each from an all-ACC window-local state
-    state2, matched2, conf2 = engine.window_tier_pass(
-        put(s.u_tiles), put(s.v_tiles), window=window,
-        tiles_per_window=s.tiles_per_window, tile_size=tile_size,
-        vector_rounds=vector_rounds, backend=backend, spec=spec,
-    )
-    if faults is not None and faults.lose_shard is not None and s.num_rows:
-        # FAULT: one window row's tier contribution (state AND matched
-        # bits) vanishes
-        lost_row = faults.lose_shard % s.num_rows
-        state2[lost_row] = 0
-        matched2[lost_row] = 0
-    # rows hold only the dense windows; coalesced windows stay all-ACC
-    flat = torch.zeros((s.num_windows, window), dtype=spec.vmem_dtype,
-                       device=dev)
-    flat[put(s.window_ids).long()] = state2
-    if faults is not None and faults.corrupt_state > 0.0:
-        # FAULT: out-of-domain cells in the assembled state (renumbered
-        # flat ids), as in the locality-sharded distributed run
-        hit = flt.corruption_mask(faults, s.num_windows * window, dev)
-        flat.view(-1).masked_fill_(hit, flt.CORRUPT)
+    with tracing.span("skipper_match.window_tier"):
+        state2, matched2, conf2 = engine.window_tier_pass(
+            put(s.u_tiles), put(s.v_tiles), window=window,
+            tiles_per_window=s.tiles_per_window, tile_size=tile_size,
+            vector_rounds=vector_rounds, backend=backend, spec=spec,
+        )
+        engine.count_fallback("skipper_match.window_tier", conf2,
+                              vector_rounds, s.num_windowed)
+        if faults is not None and faults.lose_shard is not None and s.num_rows:
+            # FAULT: one window row's tier contribution (state AND matched
+            # bits) vanishes
+            lost_row = faults.lose_shard % s.num_rows
+            state2[lost_row] = 0
+            matched2[lost_row] = 0
+        # rows hold only the dense windows; coalesced windows stay all-ACC
+        flat = torch.zeros((s.num_windows, window), dtype=spec.vmem_dtype,
+                           device=dev)
+        flat[put(s.window_ids).long()] = state2
+        if faults is not None and faults.corrupt_state > 0.0:
+            # FAULT: out-of-domain cells in the assembled state (renumbered
+            # flat ids), as in the locality-sharded distributed run
+            hit = flt.corruption_mask(faults, s.num_windows * window, dev)
+            flat.view(-1).masked_fill_(hit, flt.CORRUPT)
+        dec = [matched2.reshape(-1)]
+        cfs = [conf2.reshape(-1)]
 
     cdt = spec.counter_dtype
-    dec = [matched2.reshape(-1)]
-    cfs = [conf2.reshape(-1)]
     if nb_tiles:
-        bu, bv = put(s.boundary_ulocal), put(s.boundary_vlocal)
-        if faults is not None and faults.drop_proposals > 0.0:
-            # FAULT: dropped global-tier slots are never decided (the mask
-            # is keyed by global-tier stream position: the distributed
-            # gather-drop's victims)
-            drop = flt.proposal_drop_mask(faults, s.num_boundary_padded, dev)
-            bu = bu.masked_fill(drop, -1)
-            bv = bv.masked_fill(drop, -1)
-        args = (flat, put(s.boundary_blk_u), put(s.boundary_blk_v),
-                bu.reshape(nb_tiles, tile_size),
-                bv.reshape(nb_tiles, tile_size))
-        if backend == "cuda":
-            bmt, bcf = kernel.boundary_tier(
-                *args, vector_rounds=vector_rounds, spec=spec)
-        else:
-            bmt, bcf = ref.ref_boundary_pass(
-                *args, vector_rounds=vector_rounds,
-                conflict_method=conflict_method, spec=spec)
-        dec.append(bmt.reshape(-1))
-        cfs.append(bcf.reshape(-1))
-    zero = torch.zeros((1,), dtype=cdt, device=dev)
-    # slot-order decisions back to stream order: [windowed ++ global ++ pad]
-    src = put(s.stream_src).long()
-    mask = torch.cat(dec + [zero])[src] > 0
-    conf = torch.cat(cfs + [zero])[src].to(torch.int32)
+        with tracing.span("skipper_match.global_tier"):
+            bu, bv = put(s.boundary_ulocal), put(s.boundary_vlocal)
+            if faults is not None and faults.drop_proposals > 0.0:
+                # FAULT: dropped global-tier slots are never decided (the
+                # mask is keyed by global-tier stream position: the
+                # distributed gather-drop's victims)
+                drop = flt.proposal_drop_mask(faults, s.num_boundary_padded,
+                                              dev)
+                bu = bu.masked_fill(drop, -1)
+                bv = bv.masked_fill(drop, -1)
+            args = (flat, put(s.boundary_blk_u), put(s.boundary_blk_v),
+                    bu.reshape(nb_tiles, tile_size),
+                    bv.reshape(nb_tiles, tile_size))
+            if backend == "cuda":
+                bmt, bcf = kernel.boundary_tier(
+                    *args, vector_rounds=vector_rounds, spec=spec)
+            else:
+                bmt, bcf = ref.ref_boundary_pass(
+                    *args, vector_rounds=vector_rounds,
+                    conflict_method=conflict_method, spec=spec)
+            engine.count_fallback("skipper_match.global_tier", bcf,
+                                  vector_rounds, s.num_valid - s.num_windowed)
+            dec.append(bmt.reshape(-1))
+            cfs.append(bcf.reshape(-1))
+    else:  # no global tier: it decides no edge
+        engine.count_fallback("skipper_match.global_tier", None,
+                              vector_rounds, 0)
+    with tracing.span("skipper_match.gather"):
+        zero = torch.zeros((1,), dtype=cdt, device=dev)
+        # slot-order decisions back to stream order: [windowed ++ global ++
+        # pad]
+        src = put(s.stream_src).long()
+        mask = torch.cat(dec + [zero])[src] > 0
+        conf = torch.cat(cfs + [zero])[src].to(torch.int32)
 
     def i32(x):
+        if dev.type == "cuda":
+            tracing.count("h2d_bytes", 4)
         return torch.tensor(x, dtype=torch.int32, device=dev)
 
-    nmatch = mask.sum(dtype=torch.int32)
-    nconf = conf.sum(dtype=torch.int32)
-    counters = Counters(
-        edge_reads=i32(m),
-        state_loads=i32(2 * m) + 2 * nconf,
-        state_stores=2 * nmatch,
-        rounds=i32(1),
-    )
-    # back to ORIGINAL vertex ids: vertex i lives at renumbered slot perm[i]
-    state_flat = flat.reshape(-1)
-    if s.perm is not None:
-        state_flat = state_flat[put(s.perm).long()]
-    else:
-        state_flat = state_flat[: s.num_vertices]
-    result = MatchResult(match_mask=mask,
-                         state=state_flat.to(spec.at_rest_dtype),
-                         counters=counters)
+    with tracing.span("skipper_match.counters"):
+        nmatch = mask.sum(dtype=torch.int32)
+        nconf = conf.sum(dtype=torch.int32)
+        counters = Counters(
+            edge_reads=i32(m),
+            state_loads=i32(2 * m) + 2 * nconf,
+            state_stores=2 * nmatch,
+            rounds=i32(1),
+        )
+    with tracing.span("skipper_match.gather"):
+        # back to ORIGINAL vertex ids: vertex i lives at renumbered slot
+        # perm[i]
+        state_flat = flat.reshape(-1)
+        if s.perm is not None:
+            state_flat = state_flat[put(s.perm).long()]
+        else:
+            state_flat = state_flat[: s.num_vertices]
+        result = MatchResult(match_mask=mask,
+                             state=state_flat.to(spec.at_rest_dtype),
+                             counters=counters)
 
     report = None
     if on_fault == "recover":

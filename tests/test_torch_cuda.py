@@ -57,6 +57,39 @@ def test_skipper_match_kernels_equal_plain(cuda_device, spec, vector_rounds):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("vector_rounds", [1, 2])
+def test_skipper_match_counts_its_copies_and_fallback(cuda_device,
+                                                      vector_rounds):
+    """``h2d_bytes`` is what a call moves to the card: the schedule arrays
+    it puts there and the three int32 scalars of its counters; under a
+    profiler the tiers' fallback counters equal the edges blocked in every
+    vector round of the kernels' per-edge conflicts, and each tier's id
+    check is one span."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tracing
+
+    g = rmat_graph(11, 8, seed=4)
+    s = build_window_schedule(g, 256, 256, reorder="degree")
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        _, conf = skipper_match(g, schedule=s, vector_rounds=vector_rounds,
+                                with_conflicts=True, device=cuda_device)
+    got = tracing.counters()
+    put = (s.u_tiles, s.v_tiles, s.window_ids, s.boundary_ulocal,
+           s.boundary_vlocal, s.boundary_blk_u, s.boundary_blk_v,
+           s.stream_src, s.perm)
+    assert got["h2d_bytes"] == sum(a.nbytes for a in put) + 3 * 4
+    conf = conf.cpu().numpy()
+    for tier, idx in (("window_tier", s.edge_index),
+                      ("global_tier", s.boundary_index)):
+        want = int((conf[idx[idx >= 0]] == vector_rounds).sum())
+        assert got[f"skipper_match.{tier}.fallback_edges"] == want, tier
+    assert tracing.spans()["kernels.id_check"]["count"] == 2
+    tracing.reset()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("spec", SPECS)
 def test_tier_kernels_equal_plain(cuda_device, spec):
     sp = getattr(StateSpec, spec)()

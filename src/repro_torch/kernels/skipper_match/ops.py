@@ -18,7 +18,7 @@ device, and is the only backend on the CPU.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -38,6 +38,9 @@ from repro_torch.graphs.windows import WindowSchedule, build_window_schedule
 from repro_torch.kernels.skipper_match import kernel, ref
 
 BACKENDS = ("cuda", "torch")
+
+#: each CUDA device's copy stream for the schedule, made at its first call
+_COPY_STREAMS: Dict[int, torch.cuda.Stream] = {}
 
 
 def resolve_backend(backend: Optional[str], device: torch.device) -> str:
@@ -94,6 +97,36 @@ def skipper_match_window(
     return state[0], matched[0, :m], conflicts[0, :m]
 
 
+def _copy_stream(dev: torch.device) -> torch.cuda.Stream:
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    stream = _COPY_STREAMS.get(index)
+    if stream is None:
+        stream = _COPY_STREAMS[index] = torch.cuda.Stream(device=index)
+    return stream
+
+
+def _stage(host: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """``host`` on the CUDA device ``dev``, queued without a wait for the
+    card: the host copies it into pinned memory (torch's copy, on its
+    intra-op threads), then a DMA on the device's copy stream moves it, and
+    the current stream waits for that DMA before its next work. The caller's
+    memory is read before the return; the DMA reads only the pinned block,
+    which torch's caching host allocator keeps for later calls and hands out
+    again only once the DMA has landed. The device block comes from the copy
+    stream's pool and is reused only after the current stream's work queued
+    before its release (``record_stream``)."""
+    compute, copy = torch.cuda.current_stream(dev), _copy_stream(dev)
+    pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+    pinned.copy_(host)
+    with torch.cuda.stream(copy):
+        out = torch.empty(host.shape, dtype=host.dtype, device=dev)
+        out.copy_(pinned, non_blocking=True)
+    compute.wait_stream(copy)
+    out.record_stream(compute)
+    tracing.count("h2d_staged_bytes", out.nbytes)
+    return out
+
+
 @tracing.spanned("skipper_match")
 def skipper_match(
     edges: Optional[EdgeList] = None,
@@ -148,7 +181,9 @@ def skipper_match(
     ``skipper_match``, its steps the spans ``skipper_match.copy`` (each
     ``put`` of a schedule array), ``.window_tier``, ``.global_tier``,
     ``.gather`` (to stream order and original ids) and ``.counters``; the
-    bytes it moves to the card add to ``h2d_bytes``, and while a profiler
+    bytes it moves to the card add to ``h2d_bytes``, those of them staged
+    through pinned memory and the copy stream (every schedule array, on a
+    CUDA device) to ``h2d_staged_bytes``, and while a profiler
     records each tier adds its edges and the edges its exact fallback
     decides to ``skipper_match.<tier>.edges`` / ``.fallback_edges``.
 
@@ -180,9 +215,10 @@ def skipper_match(
 
     def put(a: np.ndarray) -> torch.Tensor:
         with tracing.span("skipper_match.copy"):
-            t = torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
-        if dev.type == "cuda":
-            tracing.count("h2d_bytes", t.nbytes)
+            t = torch.from_numpy(np.ascontiguousarray(a, np.int32))
+            if dev.type == "cuda":
+                t = _stage(t, dev)
+                tracing.count("h2d_bytes", t.nbytes)
         return t
 
     s = schedule

@@ -80,6 +80,7 @@ def test_skipper_match_counts_its_copies_and_fallback(cuda_device,
            s.boundary_vlocal, s.boundary_blk_u, s.boundary_blk_v,
            s.stream_src, s.perm)
     assert got["h2d_bytes"] == sum(a.nbytes for a in put) + 3 * 4
+    assert got["h2d_staged_bytes"] == sum(a.nbytes for a in put)
     conf = conf.cpu().numpy()
     for tier, idx in (("window_tier", s.edge_index),
                       ("global_tier", s.boundary_index)):
@@ -87,6 +88,91 @@ def test_skipper_match_counts_its_copies_and_fallback(cuda_device,
         assert got[f"skipper_match.{tier}.fallback_edges"] == want, tier
     assert tracing.spans()["kernels.id_check"]["count"] == 2
     tracing.reset()
+
+
+#: the schedule arrays ``skipper_match`` puts on the card, each its own
+#: pinned block
+PUT = ("u_tiles", "v_tiles", "window_ids", "boundary_ulocal",
+       "boundary_vlocal", "boundary_blk_u", "boundary_blk_v", "stream_src",
+       "perm")
+
+
+def _plain(g, s):
+    res, conf = skipper_match(g, schedule=s, backend="torch",
+                              with_conflicts=True, device="cpu")
+    return res.match_mask, res.state, conf
+
+
+@pytest.mark.cuda
+def test_staged_calls_in_flight_equal_plain(cuda_device):
+    """Three calls on two schedules, queued with no wait between them, so
+    that each call's pinned blocks come back while the last call's copies
+    and tiers may still run: each equals the plain version bit for bit, and
+    every schedule byte went through the staging."""
+    from repro_torch import tracing
+
+    graphs = [rmat_graph(11, 8, seed=4), rmat_graph(11, 8, seed=5)]
+    scheds = [build_window_schedule(g, 256, 64, reorder="degree")
+              for g in graphs]
+    want = [_plain(g, s) for g, s in zip(graphs, scheds)]
+    torch.cuda.synchronize(cuda_device)
+    tracing.reset()
+    got = []
+    for i in (0, 1, 0):
+        res, conf = skipper_match(graphs[i], schedule=scheds[i],
+                                  with_conflicts=True, device=cuda_device)
+        got.append((i, (res.match_mask, res.state, conf)))
+    torch.cuda.synchronize(cuda_device)
+    for i, outs in got:
+        _same(*((a.cpu(), b) for a, b in zip(outs, want[i])))
+    staged = sum(getattr(scheds[i], k).nbytes for i, _ in got for k in PUT)
+    counts = tracing.counters()
+    assert counts["h2d_staged_bytes"] == staged
+    assert counts["h2d_bytes"] == staged + 3 * 3 * 4
+    tracing.reset()
+
+
+@pytest.mark.cuda
+def test_skipper_match_is_done_with_the_schedule_at_return(cuda_device):
+    """Garbage written into every schedule array as soon as the call
+    returns, before the card is waited for, changes nothing: the program
+    read the caller's memory before it returned."""
+    g = rmat_graph(11, 8, seed=4)
+    s = build_window_schedule(g, 256, 64, reorder="degree")
+    want = _plain(g, s)
+    torch.cuda.synchronize(cuda_device)
+    res, conf = skipper_match(g, schedule=s, with_conflicts=True,
+                              device=cuda_device)
+    rng = np.random.default_rng(0)
+    for k in PUT:
+        a = getattr(s, k)
+        a[...] = rng.integers(-2**31, 2**31, a.shape, dtype=np.int32)
+    torch.cuda.synchronize(cuda_device)
+    _same(*((a.cpu(), b) for a, b in
+            zip((res.match_mask, res.state, conf), want)))
+
+
+@pytest.mark.cuda
+def test_staging_waits_for_no_kernel(cuda_device):
+    """A staged array's host copy and DMA go on while the current stream
+    still runs a kernel queued before: the host returns and the copy lands
+    before that kernel ends, and the stream reads the array after it."""
+    from repro_torch.kernels.skipper_match import ops
+
+    a = np.arange(1 << 20, dtype=np.int32)
+    ops._stage(torch.from_numpy(a), cuda_device)  # the pinned block, once
+    torch.cuda.synchronize(cuda_device)
+    torch.cuda._sleep(1_000_000_000)  # about half a second of the stream
+    busy = torch.cuda.Event()
+    busy.record()
+    t = ops._stage(torch.from_numpy(a), cuda_device)
+    landed = torch.cuda.Event()
+    landed.record(ops._copy_stream(cuda_device))
+    assert not busy.query()
+    landed.synchronize()
+    assert not busy.query()
+    a[:] = -1
+    assert torch.equal(t.cpu(), torch.arange(1 << 20, dtype=torch.int32))
 
 
 @pytest.mark.cuda

@@ -118,6 +118,27 @@ def test_skipper_match_steps_nest_in_its_span(prebuilt):
     assert tracing.counters().get("h2d_bytes", 0) == 0  # nothing to a card
 
 
+def test_skipper_match_on_the_cpu_stages_nothing(monkeypatch):
+    """On the CPU a schedule array is the caller's own memory: nothing is
+    staged or moved, and the steps still nest in the call's span."""
+    from repro_torch.kernels.skipper_match import ops
+
+    def no_staging(*args):
+        raise AssertionError("staged on the CPU")
+
+    monkeypatch.setattr(ops, "_stage", no_staging)
+    _, g = _graph()
+    sched = build_window_schedule(g, 128, 64, reorder="degree")
+    for backend in (None, "torch"):
+        _, events = _traced(lambda: skipper_match(
+            g, schedule=sched, backend=backend, device="cpu"))
+        _assert_steps_cover(events, "skipper_match", STEPS["skipper_match"])
+    counts = tracing.counters()
+    assert counts.get("h2d_staged_bytes", 0) == 0
+    assert counts.get("h2d_bytes", 0) == 0
+    assert tracing.spans()["skipper_match.copy"]["count"] == 2 * 9
+
+
 def test_skipper_steps_nest_in_its_span():
     _, g = _graph()
     _, events = _traced(lambda: skipper(g, tile_size=64, device="cpu"))

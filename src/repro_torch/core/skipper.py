@@ -76,7 +76,8 @@ def skipper(
 
     Tracing (``repro_torch/tracing.py``): the call is the span ``skipper``,
     its steps ``skipper.stream_tiles``, ``skipper.global_tier`` (with the
-    kernel's id check, ``kernels.id_check``) and ``skipper.gather``; while a
+    kernel's id check, ``kernels.id_check``) and ``skipper.gather``; every
+    call adds its tiles to the host counter ``skipper.tiles``; while a
     profiler records, the valid edges and those the exact fallback decides
     add to ``skipper.edges`` / ``skipper.fallback_edges``.
     """
@@ -88,6 +89,7 @@ def skipper(
     n, m = edges.num_vertices, edges.num_edges
     with tracing.span("skipper.stream_tiles"):
         ut, vt = stream_tiles(edges.to(dev), tile_size, dispersed)
+    tracing.count("skipper.tiles", ut.shape[0])
     with tracing.span("skipper.global_tier"):
         if dev.type == "cuda":
             row = torch.zeros((n,), dtype=spec.vmem_dtype, device=dev)

@@ -218,6 +218,23 @@ def test_raw_fallback_counters(vector_rounds):
     assert got["skipper.edges"] == int(((u != v) & (u >= 0)).sum())
 
 
+@pytest.mark.parametrize("m,tile_size", [(1000, 256), (1024, 256), (5, 64)])
+def test_raw_tiles_counter(m, tile_size):
+    """``skipper.tiles`` grows by ceil(m / tile_size) a call, the tile the
+    padding completes among them, with or without a profiler."""
+    rng = np.random.default_rng(m)
+    u = rng.integers(0, 50, m, dtype=np.int32)
+    v = rng.integers(0, 50, m, dtype=np.int32)
+    g = edges_from_arrays(u, v, 50)
+    want = -(-m // tile_size)
+    skipper(g, tile_size=tile_size, device="cpu")
+    assert tracing.counters()["skipper.tiles"] == want
+    with profile(activities=[ProfilerActivity.CPU]):
+        skipper(g, tile_size=tile_size, device="cpu")
+    assert tracing.counters()["skipper.tiles"] == 2 * want
+    assert tracing.spans()["skipper"]["count"] == 2
+
+
 def test_launches_are_registry_counters():
     kernel.reset_launch_counts()
     tracing.launched(kernel.BOUNDARY_ASYNC)

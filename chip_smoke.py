@@ -773,38 +773,47 @@ def phase_full(dev, seed: int, scale: int, worst):
             f"{1e3 * ms / nb:.4f} us a tile over {nb} tiles, "
             f"max_abs_err against plain {err_b[name]}")
     log(f"global tier plain: {bp_ms:.1f} ms")
-    # one more run with the kernel's cycle profile on (thread 0's clock64
-    # spans over the tile loop), also held against the plain version
-    prof = torch.zeros(len(kernel.PROFILE_FIELDS), dtype=torch.int64,
-                       device=dev)
-    fk = flat.clone()
-    prof_ms, b_out = cuda_time(lambda: kernel.boundary_tier(
-        fk, *args, vector_rounds=vr, spec=spec, profile=prof))
-    err_b["profiled"] = max_err(*zip((fk, *b_out), plain))
-    cyc = dict(zip(kernel.PROFILE_FIELDS, prof.tolist()))
-    free = max(cyc["free_tiles"], 1)
-    tile_profile = {
-        "profiled_ms": prof_ms,
-        "cycles_per_us": cyc["total"] / (prof_ms * 1e3),
-        **{f"{f}_cycles_per_tile": cyc[f] / nb for f in
-           ("wait_and_ids", "state_rows", "tile_body",
-            "counters_release_refill", "total")},
-        "free_tile_share": cyc["free_tiles"] / nb,
-        "tile_body_cycles_in_free_tiles": cyc["tile_body_in_free_tiles"]
-        / free,
-        "tile_body_cycles_in_other_tiles": (
-            cyc["tile_body"] - cyc["tile_body_in_free_tiles"])
-        / max(nb - cyc["free_tiles"], 1),
-        "free_rounds_per_free_tile": cyc["free_rounds"] / free,
-    }
-    log("global tier profile: " + json.dumps(tile_profile))
+    # one more run of each instance with the kernel's cycle profile on
+    # (thread 0's clock64 spans over the tile loop, and its counts), also
+    # held against the plain version
+    tile_profiles = {}
+    for instance in kernel.INSTANCES:
+        prof = torch.zeros(len(kernel.PROFILE_FIELDS), dtype=torch.int64,
+                           device=dev)
+        fk = flat.clone()
+        prof_ms, b_out = cuda_time(lambda: kernel.boundary_tier(
+            fk, *args, vector_rounds=vr, spec=spec, instance=instance,
+            profile=prof))
+        err_b[f"profiled {instance}"] = max_err(*zip((fk, *b_out), plain))
+        cyc = dict(zip(kernel.PROFILE_FIELDS, prof.tolist()))
+        free = max(cyc["free_tiles"], 1)
+        tile_profiles[instance] = {
+            "profiled_ms": prof_ms,
+            "cycles_per_us": cyc["total"] / (prof_ms * 1e3),
+            **{f"{f}_cycles_per_tile": cyc[f] / nb for f in
+               ("wait_and_ids", "state_rows", "tile_body",
+                "counters_release_refill", "total")},
+            "free_tile_share": cyc["free_tiles"] / nb,
+            "tile_body_cycles_in_free_tiles": cyc["tile_body_in_free_tiles"]
+            / free,
+            "tile_body_cycles_in_other_tiles": (
+                cyc["tile_body"] - cyc["tile_body_in_free_tiles"])
+            / max(nb - cyc["free_tiles"], 1),
+            "free_rounds_per_free_tile": cyc["free_rounds"] / free,
+            "stale_lanes_per_tile": cyc["stale_lanes"] / nb,
+            "later_round_tile_share": cyc["later_round_tiles"] / nb,
+        }
+        log(f"global tier profile ({instance}): "
+            + json.dumps(tile_profiles[instance]))
+    tile_profile = tile_profiles[kernel.boundary_instance(window, tile,
+                                                          spec)]
     require(max(err_w.values()) == 0 and max(err_b.values()) == 0,
             "full scale: a kernel and its plain version disagree")
     worst[WINDOW] = max(worst[WINDOW], err_w[WINDOW])
     worst[WINDOW_ASYNC] = max(worst[WINDOW_ASYNC], err_w[WINDOW_ASYNC],
                               err_w["profiled"])
     worst[ASYNC] = max(worst[ASYNC], err_b[ASYNC], err_b["device instance"],
-                       err_b["profiled"])
+                       err_b["profiled staged"], err_b["profiled device"])
     worst[BOUNDARY] = max(worst[BOUNDARY], err_b[BOUNDARY])
 
     metrics = {
@@ -824,6 +833,7 @@ def phase_full(dev, seed: int, scale: int, worst):
         "device_instance_ms": b_ms["device instance"],
         "global_tier_speedup": b_ms[BOUNDARY] / b_ms[ASYNC],
         "global_tier_profile": tile_profile,
+        "global_tier_device_profile": tile_profiles["device"],
         "schedule_copy_ms": copy_ms,
         "peak_device_bytes": peak,
     }

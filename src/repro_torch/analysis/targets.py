@@ -185,8 +185,10 @@ def _matcher_targets() -> List[KernelTarget]:
                         "O(2 * window * sizeof(S) + ring * 8 * tile), "
                         "independent of V: the pair's two state rows and "
                         "the ring of ids" if staged else
-                        "O(ring * 8 * tile), independent of V: the ring of "
-                        "ids; state stays in device memory"),
+                        "O((ring * 8 + lists * 16) * tile), independent "
+                        "of V: the ring of ids and the read-ahead's commit "
+                        "lists (the filter's 8 KiB is static); state stays "
+                        "in device memory"),
                     spec=spec,
                     launch=functools.partial(kernel.boundary_tier,
                                              spec=spec, instance=instance)))

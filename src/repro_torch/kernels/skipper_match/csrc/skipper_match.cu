@@ -71,9 +71,15 @@ struct FreeList {
 // lanes only: the free lanes' ids are compacted, in lane order, into the
 // free list through warp ballots and a prefix over the warps, and a free
 // lane scans the entries before its own. Every lane of the block calls it
-// (two barriers inside).
+// (two barriers inside). A free lane's place in the list goes to `rank`
+// where the caller asks for it. kWarpSum adds the earlier warps' counts
+// across the warp's lanes, not one after the other in each lane: the
+// device-memory instance's tile waits on it (a chain of up to 27 loads
+// and adds in the last warps), so only that instance takes it.
+template <bool kWarpSum = false>
 __device__ __forceinline__ bool blocked_by_free_list(bool fr, int uu, int vv,
-                                                     FreeList fl) {
+                                                     FreeList fl,
+                                                     int* rank_out = nullptr) {
   const int l = threadIdx.x, T = blockDim.x, lane = l & 31, warp = l >> 5;
   const int in_warp = min(T - (l & ~31), 32);
   const unsigned mask = in_warp == 32 ? 0xffffffffu : (1u << in_warp) - 1u;
@@ -84,7 +90,15 @@ __device__ __forceinline__ bool blocked_by_free_list(bool fr, int uu, int vv,
   if (lane == 0) counts[warp] = __popc(ballot);
   __syncthreads();  // every warp's count is visible
   int rank = __popc(ballot & ((1u << lane) - 1u));
-  for (int w = 0; w < warp; ++w) rank += counts[w];
+  if constexpr (kWarpSum) {
+    // a last warp may have fewer lanes than there are warps before it
+    int before = 0;
+    for (int w = lane; w < warp; w += in_warp) before += counts[w];
+    rank += __reduce_add_sync(mask, before);
+  } else {
+    for (int w = 0; w < warp; ++w) rank += counts[w];
+  }
+  if (rank_out != nullptr) *rank_out = rank;
   if (fr) {
     lu[rank] = uu;
     lv[rank] = vv;
@@ -234,8 +248,18 @@ __global__ void skipper_boundary_kernel(
 // the ring: kRing stages of kGroup consecutive tiles each
 constexpr int kGroup = 4;
 constexpr int kRing = 4;
-// counters of the asynchronous global tier's optional cycle profile
-constexpr int kProfileFields = 8;
+// the device-memory instance reads a tile's state cells this many tiles
+// ahead, and keeps the commits of that many tiles, and its own, in shared
+// memory (two ahead, its u cells two tiles and its v cells one tile ahead,
+// ran slower on the raw stream at scale 22: PERF.md section 6)
+constexpr int kPrefetch = 1;
+constexpr int kCommitLists = kPrefetch + 1;
+// the slots of the commit lists' filter (CommitLists): 2^13
+constexpr int kFilterSlots = 8192;
+// counters of the asynchronous global tier's optional cycle profile: the
+// first kSpanFields in both instances, then the device instance's own two
+constexpr int kSpanFields = 8;
+constexpr int kProfileFields = kSpanFields + 2;
 // the largest tile (threads a block) the kernels take
 constexpr int kMaxTile = 1024;
 // the largest tile skipper_boundary_async_kernel takes: its 64-67
@@ -316,6 +340,88 @@ __device__ __forceinline__ void bulk_wait_all() {
   asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
+// a cycle profile's counter: a reduction into device memory (no register
+// array stays live across the tiles, and rows add up)
+__device__ __forceinline__ void profile_add(unsigned long long* profile,
+                                            int field, long long cycles) {
+  atomicAdd(profile + field, static_cast<unsigned long long>(cycles));
+}
+
+// One state cell, read from L2 (ld.global.cg) where the call stands: the
+// device-memory instance issues it a tile ahead of use, while other lanes
+// may be committing that cell. Either value is sound: MCHD is final, and
+// an ACC is checked against the commit list before it counts.
+__device__ __forceinline__ int load_cell(const uint8_t* p) {
+  unsigned int x;
+  asm volatile("ld.global.cg.u8 %0, [%1];" : "=r"(x) : "l"(p) : "memory");
+  return int(x);
+}
+
+__device__ __forceinline__ int load_cell(const int32_t* p) {
+  int x;
+  asm volatile("ld.global.cg.s32 %0, [%1];" : "=r"(x) : "l"(p) : "memory");
+  return x;
+}
+
+// the state cell of offset-local id `id` in the pair whose rows start at
+// cells ru and rv (PairCell's rule, as a flat index)
+__device__ __forceinline__ size_t pair_cell(int id, size_t ru, size_t rv,
+                                            int window) {
+  return id < window ? ru + id : rv + (id - window);
+}
+
+// The device-memory instance's commit lists, one a tile in flight: list q
+// holds, an entry a lane free in its tile's round 0, the pair of flat state
+// cells that lane committed (none where it did not), count[q] entries; and
+// one filter for all tiles, kFilterSlots byte tags: each committed cell
+// writes its tile's low byte into the slots of its two hashes. A lane
+// whose cells' slots do not all hold the list's tile skips the list: an
+// exact scan costs a shared-memory load an entry, and a tile waits for its
+// slowest warp, so a scan in any warp (a list holds up to one entry a
+// lane: about 300 in the raw uniform stream's first tiles) would set the
+// tile's time. A tag written 256 tiles before, or by another cell, only
+// costs a scan; the filter is never cleared, and needs no atomic.
+struct CommitLists {
+  ulonglong2* entries;  // [kCommitLists][T]
+  int* count;           // [kCommitLists]
+  unsigned char* tags;  // [kFilterSlots]
+
+  __device__ static unsigned hash(size_t c, unsigned k) {
+    return ((unsigned(c) ^ unsigned(c >> 32)) * k) >> 19;  // kFilterSlots
+  }
+  // whether the filter may hold cell cu or cv for tile t: its four slots
+  // are read side by side, not one after the other
+  __device__ bool filter(int t, size_t cu, size_t cv) const {
+    const unsigned want = static_cast<unsigned char>(t);
+    const unsigned a = tags[hash(cu, 0x9E3779B1u)];
+    const unsigned b = tags[hash(cu, 0x85EBCA77u)];
+    const unsigned c = tags[hash(cv, 0x9E3779B1u)];
+    const unsigned d = tags[hash(cv, 0x85EBCA77u)];
+    return ((a == want) & (b == want)) | ((c == want) & (d == want));
+  }
+  // whether tile t's list holds cell cu or cv
+  __device__ bool holds(int t, size_t cu, size_t cv) const {
+    if (!filter(t, cu, cv)) return false;
+    const int q = t % kCommitLists;
+    const ulonglong2* e = entries + size_t(q) * blockDim.x;
+    const int n = count[q];
+    bool hit = false;
+#pragma unroll 4
+    for (int i = 0; i < n; ++i)
+      hit |= e[i].x == cu || e[i].x == cv || e[i].y == cu || e[i].y == cv;
+    return hit;
+  }
+  __device__ void add(int t, int entry, size_t cu, size_t cv) const {
+    entries[size_t(t % kCommitLists) * blockDim.x + entry] =
+        make_ulonglong2(cu, cv);
+    const unsigned char tag = static_cast<unsigned char>(t);
+    tags[hash(cu, 0x9E3779B1u)] = tag;
+    tags[hash(cu, 0x85EBCA77u)] = tag;
+    tags[hash(cv, 0x9E3779B1u)] = tag;
+    tags[hash(cv, 0x85EBCA77u)] = tag;
+  }
+};
+
 // One ring stage holds kGroup consecutive tiles:
 // [blk_u: kGroup ints][blk_v: kGroup ints][u: kGroup * T ints][v: the same].
 // Consecutive tiles' ids and pairs are contiguous in device memory, so a
@@ -324,14 +430,23 @@ __host__ __device__ inline size_t ring_stage_bytes(int tile) {
   return 8 * kGroup + 8 * size_t(kGroup) * tile;
 }
 
+// The device-memory instance's commit lists (CommitLists): kCommitLists
+// lists of up to tile entries (16 bytes each), then their counts, padded
+// to 16 bytes. The filter's tags are a static array of that instance.
+static_assert(kPrefetch == 1 && kCommitLists <= 4, "the read-ahead depth");
+__host__ __device__ inline size_t commit_lists_bytes(int tile) {
+  return kCommitLists * 16 * size_t(tile) + 16;
+}
+
 // Dynamic shared memory of the asynchronous global tier:
-// [two state rows: 2 * window * sizeof(S), staged instance only]
-// [ring: kRing stages]. The free flags, the warp counts and the free
-// lists are static arrays of the kernel, sized for kMaxTile.
+// [two state rows: 2 * window * sizeof(S), staged instance; the commit
+// lists, device instance][ring: kRing stages]. The free flags, the warp
+// counts and the free lists are static arrays of the kernel, sized for
+// kMaxTile.
 template <typename S>
 __host__ __device__ inline size_t boundary_async_smem(int window, int tile,
                                                       bool staged) {
-  return (staged ? 2 * size_t(window) * sizeof(S) : 0) +
+  return (staged ? 2 * size_t(window) * sizeof(S) : commit_lists_bytes(tile)) +
          kRing * ring_stage_bytes(tile);
 }
 
@@ -368,6 +483,106 @@ __device__ __forceinline__ void fill_group(unsigned char* stage, uint32_t bar,
   cp_async_arrive(bar);
 }
 
+// Device-memory instance: this lane's slot of tile s, once the ring stage
+// that holds the tile has arrived (long before, as a rule): whether it is
+// valid, and its two cells' flat indices (a padding slot's are the row's
+// first cell).
+__device__ __forceinline__ bool slot_cells(const unsigned char* ring,
+                                           size_t stage_bytes, uint32_t bar0,
+                                           int window, int s, size_t& cu,
+                                           size_t& cv) {
+  const int T = blockDim.x, l = threadIdx.x;
+  const int g = s / kGroup, i = s % kGroup, st = g % kRing;
+  mbar_wait(bar0 + 8 * st, (g / kRing) & 1);
+  const int* grp = reinterpret_cast<const int*>(ring + st * stage_bytes);
+  const int uu = grp[2 * kGroup + i * T + l];
+  const int vv = grp[2 * kGroup + (kGroup + i) * T + l];
+  const size_t ru = size_t(grp[i]) * window;
+  const size_t rv = size_t(grp[kGroup + i]) * window;
+  cu = pair_cell(max(uu, 0), ru, rv, window);
+  cv = pair_cell(max(vv, 0), ru, rv, window);
+  return uu >= 0 && uu != vv;
+}
+
+// Whether this lane is free at round 0 of tile t, from its reading ahead
+// (`acc`: both cells read ACC) and the list of the tile in between.
+__device__ __forceinline__ bool free_at_round0(bool acc, int uu, int vv,
+                                               size_t cu, size_t cv, int t,
+                                               CommitLists lists,
+                                               unsigned long long* profile) {
+  const bool read_free = acc && uu >= 0 && uu != vv;
+  if (read_free && t >= 1 && lists.holds(t - 1, cu, cv)) {
+    if (profile != nullptr) profile_add(profile, kSpanFields, 1);  // stale
+    return false;
+  }
+  return read_free;
+}
+
+// Device-memory instance: tile t's body, with match_tile's rounds and
+// result, and no state read of its own. A lane's two cells were read
+// kPrefetch tiles ahead, after every tile before those in between had
+// committed; the commit lists hold the commits of those tiles as flat
+// state cells (never tile-local ids: consecutive tiles may be other block
+// pairs).
+//   * round 0: an ACC/ACC lane is free unless an in-between tile committed
+//     one of its cells (free_at_round0, `cand`: a stale lane otherwise; an
+//     MCHD read is final, state being monotone). Then match_tile's blocked
+//     test, conflicts and commits. Each free lane takes the entry of this
+//     tile's list at its place in the free list, and a commit fills it and
+//     tags the filter; warp 0 writes the count from the warp counts. No
+//     atomic.
+//   * one barrier ends a round, __syncthreads_or(blocked): a lane can be
+//     free in round r + 1 only if it was blocked in round r, so a tile with
+//     no blocked lane ends there. In a later round only the lanes blocked
+//     in the round before take part, each free unless this tile's list
+//     holds one of its cells: the state as match_tile would read it. Such
+//     a lane was free in round 0, so its commit fills its entry there.
+// Returns, in warp 0, the rounds with a free lane (match_tile's count),
+// and in every lane whether a round after round 0 ran (`later`).
+template <typename S>
+__device__ __forceinline__ int prefetched_tile(
+    int uu, int vv, bool cand, size_t cu, size_t cv, S* state, int t,
+    CommitLists lists, FreeList free_list, int vector_rounds, bool fallback,
+    bool& matched, int& conflicts, bool& later) {
+  const int T = blockDim.x, l = threadIdx.x;
+  const int own = t % kCommitLists;
+  matched = false;
+  conflicts = 0;
+  later = false;
+  int rounds = 0, entry = 0;
+  for (int r = 0;; ++r) {
+    if (!fallback && r >= vector_rounds) break;  // uniform over the block
+    later = r > 0;
+    const bool fr = cand && (r == 0 || !lists.holds(t, cu, cv));
+    int rank;
+    const bool blocked =
+        blocked_by_free_list<true>(fr, uu, vv, free_list, &rank);
+    if (blocked && r < vector_rounds) ++conflicts;
+    if (r == 0) entry = rank;
+    if (fr && !blocked) {  // committed edges are endpoint-disjoint
+      state[cu] = S(kMatched);
+      state[cv] = S(kMatched);
+      matched = true;
+      lists.add(t, entry, cu, cv);
+    } else if (r == 0 && fr) {
+      lists.entries[size_t(own) * T + entry] = make_ulonglong2(~0ull, ~0ull);
+    }
+    if (l < 32) {  // warp 0: the round's free lanes, from the warp counts
+      const unsigned mask = T >= 32 ? 0xffffffffu : (1u << T) - 1u;
+      const int n = __reduce_add_sync(
+          mask, l < (T + 31) / 32 ? free_list.counts[l] : 0);
+      if (r == 0 && l == 0) lists.count[own] = n;
+      rounds += n > 0;
+    }
+    cand = blocked;
+    // barrier: the round's commits, entries, tags and count precede the
+    // next round's checks and the next tile's, and every read of the warp
+    // counts precedes their next writes
+    if (!__syncthreads_or(blocked)) break;
+  }
+  return rounds;
+}
+
 // Replaces src/repro/kernels/skipper_match/kernel.py::skipper_boundary_kernel
 // (:196), as skipper_boundary_kernel did, with the same tile arithmetic
 // and the same result bit for bit: ONE block walks the global-tier tiles
@@ -400,10 +615,19 @@ __device__ __forceinline__ void fill_group(unsigned char* stage, uint32_t bar,
 //     bulk copy that completes on an mbarrier. A same-block pair uses one
 //     row. Without kStaged (rows that do not fit beside the ring) the
 //     state stays in device memory, addressed as skipper_boundary_kernel
-//     does; the ring still feeds the ids.
-// profile (null unless asked for): thread 0's clock64 cycles over the tile
-// loop, summed over the tiles, into kProfileFields counters (the order of
-// kernel.py's PROFILE_FIELDS).
+//     does; the ring still feeds the ids, and the tile body is
+//     prefetched_tile, not match_tile: while tile t runs (after tile t - 1's
+//     last barrier, and after its own check) each lane reads its two cells
+//     of tile t + 1. So a tile waits on no state read, checks an ACC/ACC
+//     reading against the commit list of the tile in between (through a
+//     Bloom filter: a scan would set the tile's time), and takes later
+//     rounds from its own commits. At the raw stream's scale 22 a tile of
+//     match_tile waited on 3-4 chained L2 reads (both cells, and again in
+//     the round after any round with a free lane).
+// profile (null unless asked for; the wrapper zeroes it): thread 0's
+// clock64 cycles over the tile loop, summed over the tiles, into
+// kSpanFields counters, then the device instance's stale lanes and tiles
+// with a later round (the order of kernel.py's PROFILE_FIELDS).
 template <typename S, typename C, bool kStaged>
 __global__ void skipper_boundary_async_kernel(
     const int* __restrict__ blk_u, const int* __restrict__ blk_v,
@@ -424,7 +648,19 @@ __global__ void skipper_boundary_async_kernel(
   // local memory
   const size_t row_bytes = kStaged ? size_t(window) * sizeof(S) : 0;
   const uint32_t rb = uint32_t(row_bytes);
-  unsigned char* const ring = smem + 2 * row_bytes;
+  unsigned char* const ring =
+      smem + (kStaged ? 2 * row_bytes : commit_lists_bytes(T));
+  // device instance: the commit lists
+  // device instance: the commit lists, and the filter's tags (a static
+  // array of that instance alone)
+  unsigned char* tags = nullptr;
+  if constexpr (!kStaged) {
+    __shared__ unsigned char filter_tags[kFilterSlots];
+    tags = filter_tags;
+  }
+  const CommitLists lists{
+      reinterpret_cast<ulonglong2*>(smem),
+      reinterpret_cast<int*>(smem + kCommitLists * 16 * size_t(T)), tags};
   const size_t stage_bytes = ring_stage_bytes(T);
   const uint32_t bar0 = smem_addr(full_bar), ebar0 = smem_addr(empty_bar);
   const uint32_t rbar = smem_addr(&row_bar);
@@ -441,16 +677,31 @@ __global__ void skipper_boundary_async_kernel(
     mbar_init(rbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  if constexpr (!kStaged) {
+    for (int i = l; i < kCommitLists; i += T) lists.count[i] = 0;
+    for (int i = l; i < kFilterSlots; i += T) tags[i] = 0xFF;  // no tile
+  }
   __syncthreads();
   const int num_groups = (num_tiles + kGroup - 1) / kGroup;
   if (l == 0)
     for (int g = 0; g < kRing && g < num_groups; ++g)
       fill_group(ring + g * stage_bytes, bar0 + 8 * g, blk_u, blk_v, u, v, g,
                  num_tiles, T);
+  // device instance: this lane's u and v cells of the tile to run, as read
+  // ahead. Each register takes a new load only once its value has been
+  // used, so no copy waits on a load in flight.
+  int ua = kMatched, va = kMatched;
+  if constexpr (!kStaged) {
+    size_t cu, cv;
+    if (slot_cells(ring, stage_bytes, bar0, window, 0, cu, cv)) {
+      ua = load_cell(state + cu);
+      va = load_cell(state + cv);
+    }
+  }
   int res0 = -1, res1 = -1;  // block held by each state slot (staged)
   uint32_t row_phase = 0;
   const bool timed = profile != nullptr && l == 0;
-  unsigned long long spans[kProfileFields] = {};
+  unsigned long long spans[kSpanFields] = {};  // staged instance
   long long c0 = 0, c1 = 0, c2 = 0, c3 = 0;
   for (int t = 0; t < num_tiles; ++t) {
     if (timed) c0 = clock64();
@@ -463,8 +714,9 @@ __global__ void skipper_boundary_async_kernel(
     const int bu = grp[i], bv = grp[kGroup + i];
     if (timed) c1 = clock64();
     const int uu = tu[l], vv = tv[l];
-    S* row_u;
-    S* row_v;
+    const size_t k = size_t(t) * T + l;
+    bool m, later = false;
+    int c, rounds;
     if constexpr (kStaged) {
       // the pair's rows in the two slots; every lane decides alike
       int su = res0 == bu ? 0 : res1 == bu ? 1 : -1;
@@ -499,20 +751,35 @@ __global__ void skipper_boundary_async_kernel(
         mbar_wait(rbar, row_phase);
         row_phase ^= 1;
       }
-      row_u = reinterpret_cast<S*>(smem + su * row_bytes);
-      row_v = reinterpret_cast<S*>(smem + sv * row_bytes);
+      S* const row_u = reinterpret_cast<S*>(smem + su * row_bytes);
+      S* const row_v = reinterpret_cast<S*>(smem + sv * row_bytes);
+      if (timed) c2 = clock64();
+      rounds = match_tile<S, PairCell<S>, true>(
+          uu, vv, tu, tv, frs, PairCell<S>{row_u, row_v, window},
+          vector_rounds, fallback != 0, m, c,
+          FreeList{warp_counts, free_u, free_v});
     } else {
-      row_u = state + size_t(bu) * window;
-      row_v = state + size_t(bv) * window;
+      // tile t's cells, read ahead, are checked against the list first,
+      // whose shared-memory reads would otherwise queue behind the
+      // scattered loads; then tile t + 1's cells are read
+      const size_t cu = pair_cell(max(uu, 0), size_t(bu) * window,
+                                  size_t(bv) * window, window);
+      const size_t cv = pair_cell(max(vv, 0), size_t(bu) * window,
+                                  size_t(bv) * window, window);
+      const bool cand = free_at_round0(ua == 0 && va == 0, uu, vv, cu, cv, t,
+                                       lists, profile);
+      size_t cu1, cv1;
+      if (t + 1 < num_tiles &&
+          slot_cells(ring, stage_bytes, bar0, window, t + 1, cu1, cv1)) {
+        ua = load_cell(state + cu1);
+        va = load_cell(state + cv1);
+      }
+      if (timed) c2 = clock64();
+      rounds = prefetched_tile<S>(
+          uu, vv, cand, cu, cv, state, t, lists,
+          FreeList{warp_counts, free_u, free_v}, vector_rounds, fallback != 0,
+          m, c, later);
     }
-    const size_t k = size_t(t) * T + l;
-    bool m;
-    int c;
-    if (timed) c2 = clock64();
-    const int rounds = match_tile<S, PairCell<S>, true>(
-        uu, vv, tu, tv, frs, PairCell<S>{row_u, row_v, window},
-        vector_rounds, fallback != 0, m, c,
-        FreeList{warp_counts, free_u, free_v});
     if (timed) c3 = clock64();
     matched[k] = C(m);
     conflicts[k] = C(c);
@@ -531,21 +798,35 @@ __global__ void skipper_boundary_async_kernel(
     }
     if (timed) {
       const long long c4 = clock64();
-      spans[0] += c1 - c0;  // the stage's barrier, the pair and ids
-      spans[1] += c2 - c1;  // the state rows (staged)
-      spans[2] += c3 - c2;  // the tile body
-      spans[3] += c4 - c3;  // counters, release, refill
-      if (rounds > 0) {     // tiles in which some lane was free
-        spans[4] += 1;
-        spans[5] += c3 - c2;
-        spans[6] += rounds;
+      if constexpr (kStaged) {
+        spans[0] += c1 - c0;  // the stage's barrier, the pair and ids
+        spans[1] += c2 - c1;  // the state rows
+        spans[2] += c3 - c2;  // the tile body
+        spans[3] += c4 - c3;  // counters, release, refill
+        if (rounds > 0) {     // tiles in which some lane was free
+          spans[4] += 1;
+          spans[5] += c3 - c2;
+          spans[6] += rounds;
+        }
+        spans[7] += c4 - c0;
+      } else {  // into device memory a tile: its registers are near the cap
+        profile_add(profile, 0, c1 - c0);
+        profile_add(profile, 1, c2 - c1);  // the check and the read-ahead
+        profile_add(profile, 2, c3 - c2);
+        profile_add(profile, 3, c4 - c3);
+        if (rounds > 0) {
+          profile_add(profile, 4, 1);
+          profile_add(profile, 5, c3 - c2);
+          profile_add(profile, 6, rounds);
+        }
+        profile_add(profile, 7, c4 - c0);
+        if (later) profile_add(profile, kSpanFields + 1, 1);
       }
-      spans[7] += c4 - c0;
     }
   }
-  if (timed)
-    for (int f = 0; f < kProfileFields; ++f) profile[f] = spans[f];
   if constexpr (kStaged) {
+    if (timed)
+      for (int f = 0; f < kSpanFields; ++f) profile[f] = spans[f];
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
     __syncthreads();
     if (l == 0) {
@@ -640,13 +921,6 @@ __device__ __forceinline__ void zero_stage(C* mr, C* cr, size_t k0, int n,
       cr[k0 + size_t(j) * T + l] = C(0);
     }
   }
-}
-
-// thread 0's cycle profile: a reduction into device memory (no register
-// array stays live across the tiles, and rows add up)
-__device__ __forceinline__ void profile_add(unsigned long long* profile,
-                                            int field, long long cycles) {
-  atomicAdd(profile + field, static_cast<unsigned long long>(cycles));
 }
 
 // Replaces src/repro/kernels/skipper_match/kernel.py::skipper_pipeline_kernel

@@ -20,8 +20,10 @@ Wrappers:
   path's global tier: one persistent block over the global-tier tiles in
   schedule order, the ids fed ahead of use through a ring of asynchronous
   copies; its ``staged`` instance keeps the pair's two state rows in shared
-  memory, its ``device`` instance leaves the state in device memory. The
-  shape picks the instance (:func:`boundary_instance`).
+  memory, its ``device`` instance leaves the state in device memory and
+  reads each tile's cells a tile ahead (its plain twin:
+  ``ref.ref_boundary_pass_prefetched``). The shape picks the instance
+  (:func:`boundary_instance`).
 * :func:`boundary_tier_sync` — ``skipper_boundary_kernel``, the first
   global tier (ids and state read from device memory on each tile's
   chain), kept as the yardstick of the one above and as the body the
@@ -91,6 +93,13 @@ WINDOW_PROFILE_FIELDS = ("stage_wait", "dead_test", "tile_mask", "tile_body",
 #: tiles (``kGroup``), each stage filled by bulk copies
 RING_STAGES = 4
 TILES_PER_STAGE = 4
+#: its device-memory instance reads each tile's state cells this many tiles
+#: ahead (``kPrefetch``) and keeps the commits of the tiles in between, and
+#: of the tile it runs, in as many commit lists plus one
+PREFETCH_TILES = 1
+#: the device instance's own static array: the commit lists' filter, a
+#: byte tag for each of ``kFilterSlots`` slots
+FILTER_SMEM = 8192
 #: the two instances of the asynchronous global tier
 INSTANCES = ("staged", "device")
 #: static shared memory of the asynchronous global tier: its mbarriers and,
@@ -99,9 +108,16 @@ ASYNC_STATIC_SMEM = (8 * (2 * RING_STAGES + 1) + MAX_THREADS
                      + 4 * (32 + 2 * MAX_THREADS))
 #: the counters of its optional cycle profile (``profile=`` of
 #: :func:`boundary_tier`): thread 0's clock64 cycles summed over the tiles
+#: (``state_rows``: the staged instance's row swaps, the device instance's
+#: loads a tile ahead), ``free_tiles`` with a free lane, their rounds with
+#: one (``free_rounds``); then the device instance's own two (0 when
+#: staged): ``stale_lanes``, lanes whose ACC/ACC read ahead a tile in
+#: between overturned, and ``later_round_tiles``, tiles that ran a round
+#: after round 0
 PROFILE_FIELDS = ("wait_and_ids", "state_rows", "tile_body",
                   "counters_release_refill", "free_tiles",
-                  "tile_body_in_free_tiles", "free_rounds", "total")
+                  "tile_body_in_free_tiles", "free_rounds", "total",
+                  "stale_lanes", "later_round_tiles")
 
 #: the kernels whose launches :func:`launch_counts` reports (the registry's
 #: counters ``launches.<kernel>``)
@@ -219,11 +235,14 @@ def boundary_async_smem_bytes(window: int, tile_size: int,
                               staged: bool = True) -> int:
     """Dynamic shared memory of the asynchronous global tier
     (``boundary_async_smem`` in the CUDA source): the pair's two state
-    rows when ``staged``, then ``RING_STAGES`` stages of
-    ``TILES_PER_STAGE`` tiles' pairs and u and v ids. The kernel's static
-    arrays (:data:`ASYNC_STATIC_SMEM`) come on top."""
+    rows when ``staged``, else ``PREFETCH_TILES + 1`` commit lists of
+    ``tile_size`` 16-byte entries (a pair of cells) and their counts in 16
+    bytes; then ``RING_STAGES`` stages of ``TILES_PER_STAGE`` tiles' pairs
+    and u and v ids. The kernel's static arrays (:data:`ASYNC_STATIC_SMEM`,
+    and the device instance's :data:`FILTER_SMEM`) come on top."""
     spec = resolve_spec(spec)
-    rows = 2 * window * spec.vmem_bytes if staged else 0
+    rows = (2 * window * spec.vmem_bytes if staged
+            else (PREFETCH_TILES + 1) * 16 * tile_size + 16)
     return rows + RING_STAGES * 8 * TILES_PER_STAGE * (1 + tile_size)
 
 
@@ -487,9 +506,10 @@ def boundary_tier(
     ``instance`` and ``profile`` must be None. ``profile``, an int64 CUDA
     tensor of
     ``len(PROFILE_FIELDS)`` elements, receives the tile loop's cycle
-    spans on thread 0 (see :data:`PROFILE_FIELDS`); it costs a few clock
-    reads a tile. ``check_ids=False`` skips the range check of the ids
-    and pairs, which waits for the card: only for a caller that has
+    spans on thread 0 and the counts (see :data:`PROFILE_FIELDS`); it costs
+    a few clock reads and reductions into device memory a tile.
+    ``check_ids=False`` skips the range check of the ids and pairs, which
+    waits for the card: only for a caller that has
     checked every id it can pass, once, as the distributed matcher's
     rounds do (``core/distributed.py``).
     """
@@ -531,7 +551,8 @@ def boundary_tier(
                  "the global tier's bulk copies need 16-byte aligned ids, "
                  "pairs and (staged) state rows")
     smem = boundary_async_smem_bytes(window, tile_size, spec, staged)
-    _require(smem + ASYNC_STATIC_SMEM <= MAX_SMEM_BYTES,
+    static = ASYNC_STATIC_SMEM + (0 if staged else FILTER_SMEM)
+    _require(smem + static <= MAX_SMEM_BYTES,
              f"global tier needs {smem} B of shared memory (tile "
              f"{tile_size}); a block has {MAX_SMEM_BYTES} B")
     matched = torch.empty(u_tiles.shape, dtype=spec.counter_dtype,
@@ -543,6 +564,8 @@ def boundary_tier(
         _check_boundary_ids(blk_u, blk_v, u_tiles, v_tiles, num_windows,
                             window)
     _check_profile(profile, PROFILE_FIELDS, u_tiles.device)
+    if profile is not None:
+        profile.zero_()
     fn = getattr(_library(),
                  f"skipper_boundary_async_{spec.vmem}_{spec.counter}")
     stream = torch.cuda.current_stream(u_tiles.device).cuda_stream

@@ -13,6 +13,11 @@ the main path calls them when a card is present.
   two names for the one-row and the all-ACC cases of it.
 * :func:`ref_boundary_pass` — plain version of ``skipper_boundary_kernel``:
   ``tile_pass_pair`` looped over the global tier in schedule order.
+* :func:`ref_boundary_pass_prefetched` — the same result in the tile order
+  of ``skipper_boundary_async_kernel``'s device-memory instance: each
+  tile's cells read ahead, checked against the commits in between, later
+  rounds from the tile's own commits. No path calls it; the tests pin it
+  to :func:`ref_boundary_pass` and :func:`ref_skipper`.
 * :func:`ref_skipper` — plain version of the raw-stream matcher
   (``core/skipper.py``), which on the card is the global tier over one
   state row with every tile the same-block pair (0, 0): ``tile_pass``
@@ -20,7 +25,7 @@ the main path calls them when a card is present.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -130,6 +135,117 @@ def ref_boundary_pass(
         matched[k] = mt.to(cdt)
         conflicts[k] = cf
     return matched, conflicts
+
+
+def ref_boundary_pass_prefetched(
+    state_rows: torch.Tensor,   # [num_windows, W], contiguous, updated in place
+    blk_u: torch.Tensor,        # int32[num_tiles]
+    blk_v: torch.Tensor,
+    u_tiles: torch.Tensor,      # int32[num_tiles, T] offset-local ids
+    v_tiles: torch.Tensor,
+    *,
+    vector_rounds: int = 1,
+    fallback: bool = True,
+    spec: Optional[StateSpec] = None,
+    race: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, int]]:
+    """:func:`ref_boundary_pass`'s result, computed as the device-memory
+    instance of ``skipper_boundary_async_kernel`` computes it (the kernel's
+    ``prefetched_tile``): a lane's two cells of tile t are read
+    ``kernel.PREFETCH_TILES`` tiles ahead, once the tile before those in
+    between has committed; a lane read ACC/ACC is free at round 0 unless a
+    tile in between committed one of its cells, compared as flat state
+    cells; a later round takes only the lanes blocked in the round before,
+    each free unless this tile's commits took a cell. ``race``, a
+    generator, lets each read still in flight see a commit of its cell with
+    probability 1/2, as a load racing the commit may.
+
+    Returns ``(matched, conflicts, stats)``: the first two as
+    :func:`ref_boundary_pass`'s, ``stats`` the profile's counts
+    ``stale_lanes``, ``later_round_tiles``, ``free_tiles`` and
+    ``free_rounds``."""
+    from repro_torch.kernels.skipper_match import kernel
+
+    spec = resolve_spec(spec)
+    spec.validate_rounds(vector_rounds)
+    depth = kernel.PREFETCH_TILES
+    window = state_rows.shape[1]
+    flat = state_rows.view(-1)
+    num_tiles, tile = u_tiles.shape
+    dev = u_tiles.device
+    matched = torch.zeros(u_tiles.shape, dtype=spec.counter_dtype, device=dev)
+    conflicts = torch.zeros_like(matched)
+    stats = dict(stale_lanes=0, later_round_tiles=0, free_tiles=0,
+                 free_rounds=0)
+    bus, bvs = blk_u.tolist(), blk_v.tolist()  # host-sync: ok — host loop
+
+    def lanes(k):
+        u, v = u_tiles[k].long(), v_tiles[k].long()
+        valid = (u >= 0) & (u != v)
+
+        def cell(ids):
+            c = torch.where(ids < window, bus[k] * window + ids,
+                            bvs[k] * window + ids - window)
+            return torch.where(valid, c, 0)
+
+        return u, v, valid, cell(u), cell(v)
+
+    reads = {}  # tile -> [cell u, cell v, value u, value v], in flight
+
+    def read_ahead(k):
+        _, _, _, cu, cv = lanes(k)
+        reads[k] = [cu, cv, flat[cu].clone(), flat[cv].clone()]
+
+    commits = {}  # tile -> its committed cells
+    for k in range(min(depth, num_tiles)):
+        read_ahead(k)
+    for t in range(num_tiles):
+        if t + depth < num_tiles:
+            read_ahead(t + depth)
+        _, _, a, b = reads.pop(t)
+        u, v, valid, cu, cv = lanes(t)
+        cand = valid & (a == engine.ACC) & (b == engine.ACC)
+        between = torch.cat([commits[t - d] for d in range(1, depth + 1)
+                             if t - d >= 0] + [cu[:0]])
+        stale = cand & (torch.isin(cu, between) | torch.isin(cv, between))
+        stats["stale_lanes"] += int(stale.sum())  # host-sync: ok — counts
+        cand &= ~stale
+        blocked_fn = engine.blocked_from_matrix(
+            engine.share_matrix(u, v, valid))
+        own = cu[:0]
+        mt = torch.zeros(tile, dtype=torch.bool, device=dev)
+        cf = torch.zeros(tile, dtype=torch.int32, device=dev)
+        rounds, r = 0, 0
+        while fallback or r < vector_rounds:
+            stats["later_round_tiles"] += r == 1
+            free = cand & ~(torch.isin(cu, own) | torch.isin(cv, own))
+            blocked = blocked_fn(free)
+            if r < vector_rounds:
+                cf += blocked.to(torch.int32)
+            commit = free & ~blocked
+            done = torch.cat([cu[commit], cv[commit]])
+            flat[done] = engine.MCHD
+            own = torch.cat([own, done])
+            if race is not None:
+                for rd in reads.values():
+                    for side in (0, 1):
+                        hit = torch.isin(rd[side], done) & (torch.rand(
+                            tile, generator=race) < 0.5)
+                        rd[2 + side] = torch.where(
+                            hit, engine.MCHD, rd[2 + side])
+            mt |= commit
+            rounds += bool(commit.any())  # host-sync: ok — host loop
+            cand = blocked
+            if not bool(blocked.any()):  # host-sync: ok — host loop
+                break
+            r += 1
+        commits[t] = own
+        commits.pop(t - depth, None)
+        stats["free_tiles"] += rounds > 0
+        stats["free_rounds"] += rounds
+        matched[t] = mt.to(matched.dtype)
+        conflicts[t] = cf.to(conflicts.dtype)
+    return matched, conflicts, stats
 
 
 def ref_skipper(

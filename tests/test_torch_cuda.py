@@ -308,7 +308,7 @@ def _run_window_tiers(case, tile, widths, vector_rounds, fallback, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("widths", WIDTHS)
-@pytest.mark.parametrize("tile", [33, 64, 256, 1024])
+@pytest.mark.parametrize("tile", [33, 64, 65, 98, 164, 256, 1024])
 @pytest.mark.parametrize("case", ["rows", "short_row", "dead_row", "star",
                                   "late_free"])
 def test_async_window_tier_equals_plain_and_first_kernel(
@@ -316,8 +316,9 @@ def test_async_window_tier_equals_plain_and_first_kernel(
     """skipper_window_async_kernel bit for bit against ref_window_tier and
     skipper_window_tier_kernel: states, matched and conflicts, in each of
     the four (state, counter) widths. Tile 33 puts every row but the first
-    off a 16-byte boundary (its ids come by cp.async); at tile 1024 the
-    kernel runs 1,024 threads, the most it takes."""
+    off a 16-byte boundary (its ids come by cp.async); tiles 65, 98 and
+    164 end in a warp of fewer lanes than the warps before it; at tile
+    1024 the kernel runs 1,024 threads, the most it takes."""
     want = _run_window_tiers(case, tile, widths, 1, True, cuda_device)
     if case == "late_free":   # the skip kept both lone free slots
         g = kernel.WINDOW_STAGE_TILES
@@ -453,14 +454,15 @@ GLOBAL_TIER_CASES = {
 @pytest.mark.cuda
 @pytest.mark.parametrize("spec", SPECS)
 @pytest.mark.parametrize("instance", ["staged", "device"])
-@pytest.mark.parametrize("tile", [64, 33])
+@pytest.mark.parametrize("tile", [64, 33, 65, 98, 164])
 @pytest.mark.parametrize("case", sorted(GLOBAL_TIER_CASES))
 def test_async_global_tier_equals_plain_and_first_kernel(
         cuda_device, spec, instance, tile, case):
     """skipper_boundary_async_kernel, in both instances, bit for bit
     against ref_boundary_pass and skipper_boundary_kernel: matched,
     conflicts and the state rows. Tile 33 makes the ring's bulk copies
-    start off a 16-byte boundary (ragged ends by cp.async)."""
+    start off a 16-byte boundary (ragged ends by cp.async); tiles 65, 98
+    and 164 end in a warp of fewer lanes than the warps before it."""
     sp = getattr(StateSpec, spec)()
     pairs = GLOBAL_TIER_CASES[case]
     args = tuple(torch.from_numpy(a).to(cuda_device) for a in
@@ -532,6 +534,183 @@ def test_global_tier_profile_leaves_the_result(cuda_device, instance):
     assert cyc["total"] > 0 and 0 < cyc["free_tiles"] <= len(pairs)
     assert cyc["free_rounds"] >= cyc["free_tiles"]
     assert cyc["tile_body"] >= cyc["tile_body_in_free_tiles"]
+    # the read-ahead's counts: the device instance's equal its twin's (a
+    # racing read may see a commit and so not be stale); the staged
+    # instance reads nothing ahead, and with the fallback runs round 1 in
+    # every tile with a free lane
+    twin = ref.ref_boundary_pass_prefetched(state.clone(), *args, spec=sp)[2]
+    if instance == "device":
+        assert cyc["stale_lanes"] <= twin["stale_lanes"]
+        for f in ("later_round_tiles", "free_tiles", "free_rounds"):
+            assert cyc[f] == twin[f], f
+    else:  # the device instance's own counts
+        assert cyc["stale_lanes"] == cyc["later_round_tiles"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["window", "staged", "device"])
+@pytest.mark.parametrize("tile", [65, 98, 164, 260, 516])
+def test_free_list_rank_in_a_partial_last_warp(cuda_device, tier, tile):
+    """Tiles whose last warp has fewer lanes than there are warps before
+    it. In each, the last lane's edge shares a vertex with a free lane of
+    the warp before, and every other slot is padding: the free list has to
+    rank the last lane after that lane (the counts of every earlier warp
+    added), so that it is blocked, then dead. Each kernel that ranks free
+    lanes (the window tier, both global-tier instances) bit for bit against
+    its plain version."""
+    tiles = 3
+    u = np.full((tiles, tile), -1, np.int32)
+    v = np.full((tiles, tile), -1, np.int32)
+    other = 32 * ((tile - 1) // 32 - 1) + 1  # a lane of the warp before
+    for k in range(tiles):
+        u[k, other], v[k, other] = 10 + 10 * k, 11 + 10 * k
+        u[k, -1], v[k, -1] = 10 + 10 * k, 12 + 10 * k
+    state = torch.zeros((1, WINDOW), dtype=torch.uint8, device=cuda_device)
+    if tier == "window":
+        assert kernel.window_instance(WINDOW, tile) == "async"
+        ut, vt = (torch.from_numpy(a.reshape(1, -1)).to(cuda_device)
+                  for a in (u, v))
+        got = kernel.window_tier(ut, vt, state, tile_size=tile)
+        want = ref.ref_window_tier(ut, vt, state, tile_size=tile)
+        torch.cuda.synchronize()
+        _same(*zip(got, want))
+        matched = want[1].view(tiles, tile)
+    else:
+        pairs = torch.zeros(tiles, dtype=torch.int32, device=cuda_device)
+        args = (pairs, pairs, *(torch.from_numpy(a).to(cuda_device)
+                                for a in (u, v)))
+        rows_a, rows_p = state.clone(), state.clone()
+        got = kernel.boundary_tier(rows_a, *args, instance=tier)
+        want = ref.ref_boundary_pass(rows_p, *args)
+        torch.cuda.synchronize()
+        _same((rows_a, rows_p), *zip(got, want))
+        matched = want[0]
+    assert matched[:, other].tolist() == [1] * tiles
+    assert matched[:, -1].tolist() == [0] * tiles
+
+
+def _prefetch_case(case, tile, seed):
+    """Global-tier inputs ``(pairs, u, v, state rows)`` at window 4096 that
+    force each branch of the device-memory instance's read-ahead:
+
+    * ``stale``: one row; slot 0 of every tile a fresh edge, slot 1 an edge
+      on the vertex that tile's slot 0 took one tile before (its read
+      ahead, taken before that commit, sees ACC/ACC: a stale lane);
+    * ``chains``: one row; each tile a path of up to 12 lanes on fresh
+      vertices, which its rounds take two lanes at a time (6 rounds and
+      more);
+    * ``cross_block``: the same offset-local ids in consecutive tiles of
+      other block pairs, so the cells differ: what one tile commits must
+      not overturn the next tile's reading;
+    * ``partial_group``: 4k + 3 tiles (a last ring group of 3), random
+      ids, a quarter padding.
+
+    The rest of each tile is random ids on a few hundred vertices, some
+    padding, a state with some MCHD cells."""
+    w = 4096
+    rng = np.random.default_rng(seed)
+    tiles = {"stale": 9, "chains": 6, "cross_block": 8,
+             "partial_group": 11}[case]
+    pairs = {"cross_block": [(0, 1), (2, 3), (0, 1), (1, 2), (2, 2),
+                             (3, 3), (0, 3), (1, 2)]}.get(
+        case, [(0, 0)] * tiles)
+    cross = np.array([a != b for a, b in pairs])[:, None]
+    u = rng.integers(0, 300, (tiles, tile))
+    v = rng.integers(0, 300, (tiles, tile)) + np.where(cross, w, 0)
+    pad = rng.random(u.shape) < (0.25 if case == "partial_group" else 0.1)
+    fresh = iter(range(1000, w))
+    for k in range(tiles):
+        if case == "stale":
+            u[k, 0], v[k, 0] = next(fresh), next(fresh)
+            if k and tile > 1:
+                u[k, 1], v[k, 1] = u[k - 1, 0], next(fresh)
+        elif case == "chains":
+            path = [next(fresh) for _ in range(min(tile, 12) + 1)]
+            for j in range(len(path) - 1):
+                u[k, j], v[k, j] = path[j], path[j + 1]
+        elif case == "cross_block":
+            u[k, :2] = 5, 6
+            v[k, :2] = np.array([8, 7]) + (w if cross[k, 0] else 0)
+    if case != "partial_group":
+        pad[:, :12] = False
+    state = np.where(rng.random((4, w)) < 0.05, 2, 0)
+    state[:, 1000:] = 0
+    state[:, 5:9] = 0
+    return (pairs, np.where(pad, -1, u).astype(np.int32),
+            np.where(pad, -1, v).astype(np.int32), state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", SPECS)
+@pytest.mark.parametrize("rounds", [(1, True), (0, True), (3, False),
+                                    (2, True)])
+@pytest.mark.parametrize("tile", [32, 100, 512, 896])
+@pytest.mark.parametrize("case", ["stale", "chains", "cross_block",
+                                  "partial_group"])
+def test_device_instance_equals_its_twin_and_plain(cuda_device, spec, rounds,
+                                                   tile, case):
+    """The device-memory instance, which reads each tile's cells a tile
+    ahead, bit for bit against ``ref_boundary_pass`` and against its twin
+    ``ref_boundary_pass_prefetched`` (state rows, matched, conflicts), on
+    cases that force a stale lane, chains of three rounds and more,
+    consecutive tiles of other block pairs and a partial last ring group;
+    its profile's round counts equal the twin's."""
+    sp = getattr(StateSpec, spec)()
+    vector_rounds, fallback = rounds
+    pairs, u, v, state = _prefetch_case(case, tile, tile + len(case))
+    blk_u = torch.tensor([p[0] for p in pairs], dtype=torch.int32)
+    blk_v = torch.tensor([p[1] for p in pairs], dtype=torch.int32)
+    args = (blk_u, blk_v, torch.from_numpy(u), torch.from_numpy(v))
+    rows = torch.from_numpy(state).to(sp.vmem_dtype)
+    kw = dict(vector_rounds=vector_rounds, fallback=fallback, spec=sp)
+    rows_p, rows_t, rows_k = rows.clone(), rows.clone(), rows.to(cuda_device)
+    want = ref.ref_boundary_pass(rows_p, *args, **kw)
+    *twin, stats = ref.ref_boundary_pass_prefetched(rows_t, *args, **kw)
+    prof = torch.zeros(len(kernel.PROFILE_FIELDS), dtype=torch.int64,
+                       device=cuda_device)
+    kernel.reset_launch_counts()
+    got = kernel.boundary_tier(rows_k, *(a.to(cuda_device) for a in args),
+                               instance="device", profile=prof, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launch_counts()[kernel.BOUNDARY_ASYNC] == 1
+    _same((rows_k.cpu(), rows_p), (rows_t, rows_p),
+          *((a.cpu(), b) for a, b in zip(got, want)), *zip(twin, want))
+    cyc = dict(zip(kernel.PROFILE_FIELDS, prof.tolist()))
+    for f in ("later_round_tiles", "free_tiles", "free_rounds"):
+        assert cyc[f] == stats[f], f
+    assert cyc["stale_lanes"] <= stats["stale_lanes"]
+    if case == "stale":
+        assert stats["stale_lanes"] >= len(pairs) - 1
+    if case == "chains" and fallback:
+        assert stats["later_round_tiles"] == len(pairs)
+
+
+@pytest.mark.cuda
+def test_device_instance_sees_stale_lanes(cuda_device):
+    """On a long stream whose every tile takes a vertex the tile before
+    committed, the device instance's profile counts stale lanes: its reads
+    a tile ahead are checked against the commits in between, and stay bit
+    for bit with the plain version."""
+    pairs, u, v, state = _prefetch_case("stale", 64, 5)
+    reps = 200
+    u = np.concatenate([u + 0] * reps)
+    v = np.concatenate([v + 0] * reps)
+    for k in range(1, u.shape[0]):  # fresh vertices again, tile by tile
+        u[k, 0], v[k, 0] = 1000 + 2 * (k % 1500), 1001 + 2 * (k % 1500)
+        u[k, 1], v[k, 1] = u[k - 1, 0], 4095 - (k % 90)
+    pairs = [(0, 0)] * u.shape[0]
+    args = tuple(torch.tensor(a, dtype=torch.int32, device=cuda_device)
+                 for a in ([p[0] for p in pairs], [p[1] for p in pairs], u,
+                           v))
+    rows = torch.zeros((4, 4096), dtype=torch.uint8, device=cuda_device)
+    rows_p = rows.clone()
+    prof = torch.zeros(len(kernel.PROFILE_FIELDS), dtype=torch.int64,
+                       device=cuda_device)
+    got = kernel.boundary_tier(rows, *args, instance="device", profile=prof)
+    want = ref.ref_boundary_pass(rows_p, *args)
+    torch.cuda.synchronize()
+    _same((rows, rows_p), *zip(got, want))
+    assert dict(zip(kernel.PROFILE_FIELDS, prof.tolist()))["stale_lanes"] > 0
 
 
 @pytest.mark.cuda

@@ -270,19 +270,29 @@ def test_global_tier_instance_by_shape(window, tile, spec, instance):
 
 
 def test_global_tier_shared_memory_layout():
-    """Dynamic: two state rows (staged only) and four ring stages of four
-    tiles' pairs and u and v ids. Static: nine mbarriers, and the free
-    flags and the free list (32 warp counts, the free lanes' u and v ids)
-    for the largest tile."""
+    """Dynamic: two state rows (staged) or the commit lists of the read
+    ahead (device: a list of T 16-byte entries for each tile in between
+    and for the tile that runs, then their counts in 16 bytes), and four
+    ring stages of four tiles' pairs and u and v ids. Static: nine
+    mbarriers, and the free flags and the free list (32 warp counts, the
+    free lanes' u and v ids) for the largest tile."""
     from repro_torch.kernels.skipper_match import kernel
 
     u8 = StateSpec.u8()
     ring = 4 * (4 * 8 + 4 * 8 * 256)
+    lists = (kernel.PREFETCH_TILES + 1) * 16 * 256 + 16
     assert kernel.boundary_async_smem_bytes(65536, 256, u8, True) == (
         2 * 65536 + ring)
-    assert kernel.boundary_async_smem_bytes(65536, 256, u8, False) == ring
-    assert kernel.boundary_async_smem_bytes(
-        64, 33, u8, False) == 4 * (32 + 32 * 33)
+    assert kernel.boundary_async_smem_bytes(65536, 256, u8, False) == (
+        lists + ring)
+    assert kernel.boundary_async_smem_bytes(64, 33, u8, False) == (
+        (kernel.PREFETCH_TILES + 1) * 16 * 33 + 16 + 4 * (32 + 32 * 33))
+    # the widest tile's lists and ring fit beside the static arrays and
+    # the device instance's filter
+    assert (kernel.boundary_async_smem_bytes(
+        0, kernel.BOUNDARY_ASYNC_MAX_THREADS, u8, False)
+        + kernel.ASYNC_STATIC_SMEM + kernel.FILTER_SMEM
+        <= kernel.MAX_SMEM_BYTES)
     assert kernel.ASYNC_STATIC_SMEM == 72 + 1024 + 4 * (32 + 2048)
 
 

@@ -935,14 +935,17 @@ def raw_small(dev):
 
 
 def raw_kernel(ut, vt, n: int, instance: str):
-    """The raw-stream kernel alone, as ``skipper()`` runs it:
-    ``tiles_on_card`` on a fresh row at the default widths. Returns
+    """The raw-stream kernel alone, as ``skipper()`` runs it
+    (``kernel.tiles_on_card``): ``boundary_tier`` in ``instance`` on a
+    fresh row at the default widths, every tile the pair (0, 0). Returns
     ``(state, matched, conflicts int32)``."""
-    from repro_torch.core.skipper import tiles_on_card
+    from repro_torch.kernels.skipper_match import kernel
 
-    row = torch.zeros(n, dtype=torch.uint8, device=ut.device)
-    matched, conflicts = tiles_on_card(row, ut, vt, instance=instance)
-    return row, matched, conflicts.to(torch.int32)
+    row = torch.zeros((1, n), dtype=torch.uint8, device=ut.device)
+    pairs = torch.zeros(ut.shape[0], dtype=torch.int32, device=ut.device)
+    matched, conflicts = kernel.boundary_tier(row, pairs, pairs, ut, vt,
+                                              instance=instance)
+    return row[0], matched > 0, conflicts.to(torch.int32)
 
 
 def accesses_line(dev, seed: int, tile: int, instance: str):

@@ -65,7 +65,7 @@ from repro_torch.core.faults import (
 from repro_torch.core.statespec import StateSpec, resolve as resolve_spec
 from repro_torch.core.types import Counters, MatchResult
 from repro_torch.core.validate import check_matching
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_backend, resolve_device
 from repro_torch.graphs.partition import (
     DeviceSchedule,
     dispersed_blocks,
@@ -675,8 +675,6 @@ def distributed_skipper(
     ``spec.at_rest``, the window tier at ``spec.vmem``, the state
     assembly at ``spec.wire``).
     """
-    from repro_torch.kernels.skipper_match.ops import resolve_backend
-
     if on_fault not in ("raise", "recover", "report"):
         raise ValueError("on_fault must be 'raise', 'recover' or "
                          f"'report', got {on_fault!r}")

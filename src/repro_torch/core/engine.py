@@ -59,6 +59,7 @@ import torch
 
 from repro_torch import tracing
 from repro_torch.core.statespec import StateSpec, resolve as resolve_spec
+from repro_torch.device import resolve_backend
 
 ACC = 0
 MCHD = 2
@@ -650,11 +651,11 @@ def stream_pass(
     ``backend="torch"`` loops :func:`tile_pass` over the tiles (any
     device); ``"cuda"`` runs the slab through the global-tier kernel as
     one state row of ``n`` cells with every tile the pair (0, 0)
-    (``core/skipper.tiles_on_card``; the kernel picks its instance), at
-    the state's own width. ``None``: ``"cuda"`` on a CUDA tensor,
-    ``"torch"`` elsewhere. On the card an invalid slot (``u < 0`` or
-    ``u == v``) is written as (-1, -1) first, and the ids are range
-    checked, unless ``checked=True`` says the caller has done both.
+    (``kernels/skipper_match/kernel.tiles_on_card``), at the state's own
+    width. ``None``: by the state's device (``device.resolve_backend``).
+    On the card an invalid slot (``u < 0`` or ``u == v``) is written as
+    (-1, -1) first, and the ids are range checked, unless ``checked=True``
+    says the caller has done both.
 
     Returns ``(state, matched bool[L], conflicts[L])``: conflicts int32, or
     ``spec.counter`` when a spec is passed; the state keeps its dtype.
@@ -662,26 +663,18 @@ def stream_pass(
     num_tiles = u.shape[0] // tile_size
     ut = u.reshape(num_tiles, tile_size)
     vt = v.reshape(num_tiles, tile_size)
-    if backend is None:
-        backend = "cuda" if state.device.type == "cuda" else "torch"
-    if backend == "cuda":
-        if state.device.type != "cuda":
-            raise ValueError("backend='cuda' needs CUDA tensors")
-        from repro_torch.core.skipper import tiles_on_card
+    if resolve_backend(backend, state.device) == "cuda":
+        from repro_torch.kernels.skipper_match.kernel import tiles_on_card
 
         if not checked:
             valid = (ut >= 0) & (ut != vt)
             ut = torch.where(valid, ut, -1)
             vt = torch.where(valid, vt, -1)
-        card_spec = spec if spec is not None else StateSpec(counter="int32")
         matched, conflicts = tiles_on_card(
             state, ut.contiguous(), vt.contiguous(), vector_rounds,
-            card_spec, checked=checked)
-        if spec is None:
-            conflicts = conflicts.to(torch.int32)
+            spec if spec is not None else StateSpec(counter="int32"),
+            check_ids=not checked)
         return state, matched.reshape(-1), conflicts.reshape(-1)
-    if backend != "torch":
-        raise ValueError(f"unknown backend {backend!r}")
     cdt = torch.int32 if spec is None else spec.counter_dtype
     matched = torch.zeros((num_tiles, tile_size), dtype=torch.bool,
                           device=u.device)
@@ -718,23 +711,19 @@ def window_tier_pass(
     """
     spec = resolve_spec(spec)
     num_rows = u_rows.shape[0]
-    if backend == "cuda":
-        if u_rows.device.type != "cuda":
-            raise ValueError("backend='cuda' needs CUDA tensors")
+    if resolve_backend(backend, u_rows.device) == "cuda":
         from repro_torch.kernels.skipper_match.kernel import window_tier
 
         state0 = torch.zeros((num_rows, window), dtype=spec.vmem_dtype,
                              device=u_rows.device)
         return window_tier(u_rows, v_rows, state0, tile_size=tile_size,
                            vector_rounds=vector_rounds, spec=spec)
-    if backend == "torch":
-        from repro_torch.kernels.skipper_match.ref import make_ref_pipeline
+    from repro_torch.kernels.skipper_match.ref import make_ref_pipeline
 
-        run = make_ref_pipeline(window, vector_rounds, spec=spec)
-        states, matched, conflicts = run(
-            u_rows.reshape(num_rows, tiles_per_window, tile_size),
-            v_rows.reshape(num_rows, tiles_per_window, tile_size),
-        )
-        return (states, matched.reshape(u_rows.shape),
-                conflicts.reshape(u_rows.shape))
-    raise ValueError(f"unknown backend {backend!r}")
+    run = make_ref_pipeline(window, vector_rounds, spec=spec)
+    states, matched, conflicts = run(
+        u_rows.reshape(num_rows, tiles_per_window, tile_size),
+        v_rows.reshape(num_rows, tiles_per_window, tile_size),
+    )
+    return (states, matched.reshape(u_rows.shape),
+            conflicts.reshape(u_rows.shape))

@@ -18,7 +18,7 @@ rare. ``dispersed=False`` takes consecutive edges into a tile, the layout
 the paper argues against.
 
 Where it runs: on a CUDA device the tiles go through the global-tier
-kernel (``kernels/skipper_match/kernel.boundary_tier``): a raw stream of
+kernel (``kernels/skipper_match/kernel.tiles_on_card``): a raw stream of
 ``n`` vertices is one state row of width ``n`` and every tile the
 same-block pair (0, 0), whose ids all lie below the row's width, so each
 tile reads and writes that one row, in tile order. On the CPU the plain
@@ -28,7 +28,6 @@ raises without one.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -38,13 +37,13 @@ from repro_torch.core import engine
 from repro_torch.core.statespec import StateSpec, resolve as resolve_spec
 from repro_torch.core.types import Counters, MatchResult
 from repro_torch.core.validate import check_matching
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_backend, resolve_device
 from repro_torch.graphs.partition import pad_edges
 from repro_torch.graphs.types import EdgeList
 
 CONFLICT_METHODS = ("auto", "scatter", "sort", "matrix")
 
-__all__ = ["skipper", "stream_tiles", "tiles_on_card", "CONFLICT_METHODS"]
+__all__ = ["skipper", "stream_tiles", "CONFLICT_METHODS"]
 
 
 @tracing.spanned("skipper")
@@ -91,7 +90,9 @@ def skipper(
         ut, vt = stream_tiles(edges.to(dev), tile_size, dispersed)
     tracing.count("skipper.tiles", ut.shape[0])
     with tracing.span("skipper.global_tier"):
-        if dev.type == "cuda":
+        if resolve_backend(None, dev) == "cuda":
+            from repro_torch.kernels.skipper_match.kernel import tiles_on_card
+
             row = torch.zeros((n,), dtype=spec.vmem_dtype, device=dev)
             matched, conflicts = tiles_on_card(row, ut, vt, vector_rounds,
                                                spec)
@@ -165,42 +166,3 @@ def stream_tiles(edges: EdgeList, tile_size: int,
     return (torch.where(valid, ut, pad).contiguous(),
             torch.where(valid, vt, pad).contiguous())
 
-
-def tiles_on_card(row: torch.Tensor, ut: torch.Tensor, vt: torch.Tensor,
-                  vector_rounds: int = 1, spec: Optional[StateSpec] = None,
-                  instance: Optional[str] = None, checked: bool = False):
-    """:func:`stream_tiles`' tiles (CUDA tensors) through the global-tier
-    kernel: ``row``, a contiguous [n] state tensor of a kernel width
-    (uint8 or int32), is the one state row, every tile the pair (0, 0).
-    The kernel updates ``row`` **in place** and runs at its width;
-    ``spec`` sets the counter width. ``instance`` names the kernel's
-    instance (``"staged"`` or ``"device"``); ``None`` lets
-    ``kernel.boundary_instance`` pick it for ``n``, as :func:`skipper`
-    does, except that a row off a 16-byte boundary (which the staged
-    instance's bulk copies cannot move) takes the device-memory instance.
-    ``checked=True`` says every slot is already padding (-1, -1) or a
-    pair of ids in [0, n), so the kernel's range check, which waits for
-    the card, is skipped. Returns ``(matched bool, conflicts
-    spec.counter)``, of ``ut``'s shape."""
-    from repro_torch.kernels.skipper_match import kernel
-
-    n = row.shape[0]
-    name = str(row.dtype).removeprefix("torch.")
-    spec = dataclasses.replace(resolve_spec(spec), vmem=name)
-    if ut.shape[0] == 0 or n == 0:  # nothing can match: no launch
-        spec.validate_rounds(vector_rounds)
-        zero = torch.zeros(ut.shape, dtype=spec.counter_dtype,
-                           device=ut.device)
-        return zero > 0, zero
-    if (instance is None and row.data_ptr() % 16
-            and ut.shape[1] <= kernel.BOUNDARY_ASYNC_MAX_THREADS):
-        instance = "device"
-    # the kernel's bulk copies move the ids in 16-byte units
-    ut = ut.clone() if ut.data_ptr() % 16 else ut
-    vt = vt.clone() if vt.data_ptr() % 16 else vt
-    pairs = torch.zeros((ut.shape[0],), dtype=torch.int32, device=ut.device)
-    matched, conflicts = kernel.boundary_tier(
-        row.reshape(1, n), pairs, pairs, ut, vt,
-        vector_rounds=vector_rounds, spec=spec, instance=instance,
-        check_ids=not checked)
-    return matched > 0, conflicts

@@ -24,6 +24,9 @@ Wrappers:
   reads each tile's cells a tile ahead (its plain twin:
   ``ref.ref_boundary_pass_prefetched``). The shape picks the instance
   (:func:`boundary_instance`).
+* :func:`tiles_on_card` — the raw stream's tiles through
+  :func:`boundary_tier` as one state row, every tile the pair (0, 0): the
+  one launch of ``skipper()`` and of the engine's slab pass.
 * :func:`boundary_tier_sync` — ``skipper_boundary_kernel``, the first
   global tier (ids and state read from device memory on each tile's
   chain), kept as the yardstick of the one above and as the body the
@@ -41,6 +44,7 @@ for the card, each inside the span ``kernels.id_check``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
@@ -498,9 +502,11 @@ def boundary_tier(
     int32[num_tiles, T] offset-local ids (u in [0, W), v in [0, 2W)).
     Returns ``(matched, conflicts)``, both spec.counter[num_tiles, T].
     On CUDA tensors it launches ``skipper_boundary_async_kernel``, in the
-    instance :func:`boundary_instance` picks for the shape; ``instance``
+    instance :func:`boundary_instance` picks for the shape, or the
+    device-memory one for state rows off a 16-byte address; ``instance``
     (``"staged"`` or ``"device"``) names one instead, and a staged instance
-    the shape does not fit raises. A tile wider than
+    the shape or the address does not fit raises. Pairs or ids off a
+    16-byte address are copied to aligned memory first. A tile wider than
     :data:`BOUNDARY_ASYNC_MAX_THREADS` lanes takes
     ``skipper_boundary_kernel`` (:func:`boundary_tier_sync`), and then
     ``instance`` and ``profile`` must be None. ``profile``, an int64 CUDA
@@ -537,19 +543,21 @@ def boundary_tier(
                                   v_tiles, vector_rounds=vector_rounds,
                                   fallback=fallback, spec=spec,
                                   check_ids=check_ids)
+    # the staged instance's bulk copies move the rows in 16-byte units
+    off = state_rows.data_ptr() % 16
     fit = boundary_instance(window, tile_size, spec)
-    instance = instance or fit
-    _require(instance == "device" or fit == "staged",
+    instance = instance or ("device" if off else fit)
+    _require(instance == "device" or (fit == "staged" and not off),
              f"the staged global tier needs the pair's two state rows "
              f"({2 * window * spec.vmem_bytes} B) beside the ring in shared "
-             f"memory and 16-byte rows; window {window} at {spec.vmem} "
-             f"state and tile {tile_size} does not fit")
+             f"memory and 16-byte rows at a 16-byte address; window "
+             f"{window} at {spec.vmem} state and tile {tile_size}, rows "
+             f"{off} B off a 16-byte address, does not fit")
     staged = instance == "staged"
-    for t in (blk_u, blk_v, u_tiles, v_tiles) + (
-            (state_rows,) if staged else ()):
-        _require(t.data_ptr() % 16 == 0,
-                 "the global tier's bulk copies need 16-byte aligned ids, "
-                 "pairs and (staged) state rows")
+    # the ring's bulk copies move the pairs and ids in 16-byte units
+    blk_u, blk_v, u_tiles, v_tiles = (t.clone() if t.data_ptr() % 16 else t
+                                      for t in (blk_u, blk_v, u_tiles,
+                                                v_tiles))
     smem = boundary_async_smem_bytes(window, tile_size, spec, staged)
     static = ASYNC_STATIC_SMEM + (0 if staged else FILTER_SMEM)
     _require(smem + static <= MAX_SMEM_BYTES,
@@ -577,6 +585,31 @@ def boundary_tier(
     _check_launch(BOUNDARY_ASYNC, err)
     tracing.launched(BOUNDARY_ASYNC)
     return matched, conflicts
+
+
+def tiles_on_card(row: torch.Tensor, ut: torch.Tensor, vt: torch.Tensor,
+                  vector_rounds: int = 1, spec: Optional[StateSpec] = None,
+                  check_ids: bool = True):
+    """The raw stream's tiles (``core/skipper.stream_tiles``) through
+    :func:`boundary_tier`: ``row``, a contiguous [n] state tensor of a
+    kernel width (uint8 or int32), is the one state row, updated **in
+    place**, and every tile the pair (0, 0). The kernel runs at the row's
+    width; ``spec`` sets the counter width; ``check_ids`` as there.
+    Returns ``(matched bool, conflicts spec.counter)``, of ``ut``'s
+    shape."""
+    n = row.shape[0]
+    spec = dataclasses.replace(resolve_spec(spec),
+                               vmem=str(row.dtype).removeprefix("torch."))
+    if ut.shape[0] == 0 or n == 0:  # nothing can match: no launch
+        spec.validate_rounds(vector_rounds)
+        zero = torch.zeros(ut.shape, dtype=spec.counter_dtype,
+                           device=ut.device)
+        return zero > 0, zero
+    pairs = torch.zeros((ut.shape[0],), dtype=torch.int32, device=ut.device)
+    matched, conflicts = boundary_tier(
+        row.reshape(1, n), pairs, pairs, ut, vt, vector_rounds=vector_rounds,
+        spec=spec, check_ids=check_ids)
+    return matched > 0, conflicts
 
 
 def boundary_tier_sync(

@@ -14,7 +14,7 @@ Device and backend: ``device=None`` means ``"cuda"`` and raises
 ``RuntimeError`` when no CUDA device exists; nothing falls back to the CPU.
 ``backend="cuda"`` (the default on a CUDA device) launches the hand-written
 kernels; ``backend="torch"`` runs their plain versions (``ref.py``) on any
-device, and is the only backend on the CPU.
+device, and is the only backend on the CPU (``device.resolve_backend``).
 """
 from __future__ import annotations
 
@@ -32,28 +32,13 @@ from repro_torch.core.validate import (
     check_state_domain,
     first_offender,
 )
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_backend, resolve_device
 from repro_torch.graphs.types import EdgeList
 from repro_torch.graphs.windows import WindowSchedule, build_window_schedule
 from repro_torch.kernels.skipper_match import kernel, ref
 
-BACKENDS = ("cuda", "torch")
-
 #: each CUDA device's copy stream for the schedule, made at its first call
 _COPY_STREAMS: Dict[int, torch.cuda.Stream] = {}
-
-
-def resolve_backend(backend: Optional[str], device: torch.device) -> str:
-    """``None`` -> ``"cuda"`` on a CUDA device, ``"torch"`` elsewhere."""
-    if backend is None:
-        backend = "cuda" if device.type == "cuda" else "torch"
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
-    if backend == "cuda" and device.type != "cuda":
-        raise ValueError(
-            f"backend='cuda' launches CUDA kernels; got {device} tensors "
-            "(use backend='torch' on the CPU)")
-    return backend
 
 
 def skipper_match_window(

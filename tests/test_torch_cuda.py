@@ -923,8 +923,10 @@ def test_raw_stream_instances_equal_plain(cuda_device, spec, instance, tile):
     picked, on the raw stream of RMAT scale 12 (n = 4,096, where both
     fit): state, mask and conflicts bit for bit against ``ref_skipper`` on
     the CPU, one launch. ``skipper`` takes the device-memory instance at
-    any n whose row does not fit shared memory, as at RMAT scale 22."""
-    from repro_torch.core.skipper import stream_tiles, tiles_on_card
+    any n whose row does not fit shared memory, as at RMAT scale 22. The
+    instance is named on ``boundary_tier`` over the row with every tile
+    the pair (0, 0), the launch ``kernel.tiles_on_card`` makes."""
+    from repro_torch.core.skipper import stream_tiles
 
     g = rmat_graph(12, 8, seed=6)
     s = getattr(StateSpec, spec)()
@@ -933,14 +935,75 @@ def test_raw_stream_instances_equal_plain(cuda_device, spec, instance, tile):
     state = torch.zeros(n, dtype=s.at_rest_dtype)
     matched, conflicts = ref.ref_skipper(state, ut, vt, vector_rounds=2)
     kernel.reset_launch_counts()
-    row = torch.zeros(n, dtype=s.vmem_dtype, device=cuda_device)
-    got = tiles_on_card(row, ut.to(cuda_device), vt.to(cuda_device),
-                        vector_rounds=2, spec=s, instance=instance)
+    row = torch.zeros((1, n), dtype=s.vmem_dtype, device=cuda_device)
+    pairs = torch.zeros(ut.shape[0], dtype=torch.int32, device=cuda_device)
+    got = kernel.boundary_tier(row, pairs, pairs, ut.to(cuda_device),
+                               vt.to(cuda_device), vector_rounds=2, spec=s,
+                               instance=instance)
     torch.cuda.synchronize()
     assert kernel.launch_counts()[kernel.BOUNDARY_ASYNC] == 1
-    _same((row.cpu().to(s.at_rest_dtype), state), (got[0].cpu(), matched),
+    _same((row[0].cpu().to(s.at_rest_dtype), state),
+          (got[0].cpu() > 0, matched),
           (got[1].cpu().to(torch.int32), conflicts))
     assert kernel.boundary_instance(1 << 22, 512) == "device"
+
+
+@pytest.mark.cuda
+def test_boundary_tier_owns_alignment(cuda_device, monkeypatch):
+    """Pairs and ids off a 16-byte address (views one element into a
+    buffer) and a u8 state row off one (a view one byte in), where the
+    shape takes the staged instance: ``boundary_tier`` copies the pairs
+    and ids to aligned memory, launches the device-memory instance for
+    the row, and equals the aligned run bit for bit; naming ``"staged"``
+    for that row raises."""
+    from repro_torch.core.skipper import stream_tiles
+
+    g = rmat_graph(10, 8, seed=3)
+    n = g.num_vertices
+    ut, vt = (t.to(cuda_device) for t in stream_tiles(g, 256))
+    pairs = torch.zeros(ut.shape[0], dtype=torch.int32, device=cuda_device)
+    assert kernel.boundary_instance(n, 256) == "staged"
+
+    def off(t, by=1):  # t's values in a view ``by`` elements into a buffer
+        buf = torch.zeros(t.numel() + by, dtype=t.dtype, device=t.device)
+        view = buf[by:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16
+        return view
+
+    lib, staged = kernel._library(), []
+
+    class Spy:  # records the staged flag of each global-tier launch
+        def __getattr__(self, name):
+            fn = getattr(lib, name)
+            if not name.startswith("skipper_boundary_async_"):
+                return fn
+
+            def launch(*args):
+                staged.append(args[12])
+                return fn(*args)
+            return launch
+
+    monkeypatch.setattr(kernel, "_library", Spy)
+
+    def run(row, blk, u, v):
+        out = kernel.boundary_tier(row.view(1, n), blk, blk, u, v,
+                                   vector_rounds=2)
+        return row.cpu(), out[0].cpu(), out[1].cpu()
+
+    def row():
+        return torch.zeros(n, dtype=torch.uint8, device=cuda_device)
+
+    want = run(row(), pairs, ut, vt)
+    got_ids = run(row(), off(pairs), off(ut), off(vt))
+    bad_row = off(row())
+    got_row = run(bad_row, pairs, ut, vt)
+    torch.cuda.synchronize()
+    assert staged == [1, 1, 0]
+    _same(*zip(want, got_ids), *zip(want, got_row))
+    with pytest.raises(ValueError, match="16-byte address"):
+        kernel.boundary_tier(bad_row.view(1, n), pairs, pairs, ut, vt,
+                             instance="staged")
 
 
 @pytest.mark.cuda

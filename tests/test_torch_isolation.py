@@ -4,6 +4,7 @@ without one, ``backend="cuda"`` refuses CPU tensors, and its kernels are
 built for sm_90a from sources the package ships."""
 import ast
 import fnmatch
+import re
 import subprocess
 import sys
 import tomllib
@@ -16,7 +17,7 @@ import torch
 from repro_torch import tracing
 from repro_torch.core import engine
 from repro_torch.core.statespec import StateSpec
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_backend, resolve_device
 from repro_torch.graphs import path_graph
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
@@ -187,6 +188,88 @@ def test_cuda_backend_refuses_cpu_tensors():
                                 tile_size=8, vector_rounds=1, backend="cuda")
     with pytest.raises(ValueError, match="unknown backend"):
         skipper_match(g, device="cpu", backend="xla")
+
+
+@pytest.mark.parametrize("backend, device, want", [
+    (None, "cpu", "torch"), (None, "cuda", "cuda"), ("torch", "cuda", "torch"),
+    ("cuda", "cpu", "backend='cuda' launches CUDA kernels"),
+    ("xla", "cpu", "unknown backend 'xla'"),
+    ("xla", "cuda", "unknown backend 'xla'")])
+def test_resolve_backend_is_every_entry_points_rule(backend, device, want):
+    """``device.resolve_backend`` is the one rule: ``None`` by the device,
+    ``"cuda"`` refused off the card, an unknown name refused; and every
+    entry point and engine pass given CPU tensors refuses with its words,
+    ``engine.stream_pass`` included."""
+    from repro_torch.core.distributed import distributed_skipper
+
+    if not want.startswith(("backend", "unknown")):
+        assert resolve_backend(backend, torch.device(device)) == want
+        return
+    with pytest.raises(ValueError, match=re.escape(want)) as err:
+        resolve_backend(backend, torch.device(device))
+    if device != "cpu":
+        return
+    g, ids = path_graph(40), torch.full((8,), -1, dtype=torch.int32)
+    rows, said = ids.reshape(1, 8), re.escape(str(err.value))
+    for call in (
+            lambda: skipper_match(g, device="cpu", backend=backend),
+            lambda: skipper_match_window(
+                ids, ids, torch.zeros(16, dtype=torch.uint8), tile_size=8,
+                backend=backend, device="cpu"),
+            lambda: distributed_skipper(g, device="cpu", backend=backend),
+            lambda: engine.stream_pass(
+                torch.zeros(4, dtype=torch.uint8), ids, ids, n=4,
+                vector_rounds=1, tile_size=8, backend=backend),
+            lambda: engine.window_tier_pass(
+                rows, rows, window=16, tiles_per_window=1, tile_size=8,
+                vector_rounds=1, backend=backend)):
+        with pytest.raises(ValueError, match=said):
+            call()
+
+
+def _imported(path: Path):
+    """Every module a source file imports, at any depth of its code, each
+    ``from M import n`` as ``M.n``."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield from (f"{node.module}.{a.name}" for a in node.names)
+
+
+def _under(name: str, module: str) -> bool:
+    return name == module or name.startswith(module + ".")
+
+
+#: the matchers' seam points one way: entry points -> engine passes ->
+#: ``kernel.py`` -> the CUDA library; (importer, module it must not import,
+#: the one part of that module it may)
+ARROWS = [
+    ("core/engine.py", "repro_torch.core.skipper", None),
+    ("core/engine.py", "repro_torch.kernels.skipper_match.ops", None),
+    ("core/distributed.py", "repro_torch.kernels.skipper_match.ops", None),
+    ("kernels/skipper_match/kernel.py", "repro_torch.core",
+     "repro_torch.core.statespec"),
+]
+
+
+@pytest.mark.parametrize("importer, banned, allowed", ARROWS)
+def test_import_arrows_point_one_way(importer, banned, allowed):
+    bad = sorted(name for name in _imported(PKG / importer)
+                 if _under(name, banned)
+                 and not (allowed and _under(name, allowed)))
+    assert not bad, f"{importer} imports {bad}"
+
+
+@pytest.mark.parametrize("name, home", [
+    ("tiles_on_card", "kernels/skipper_match/kernel.py"),
+    ("resolve_backend", "device.py")])
+def test_seam_is_defined_once(name, home):
+    homes = sorted(
+        str(path.relative_to(PKG)) for path in PKG.rglob("*.py")
+        for node in ast.walk(ast.parse(path.read_text()))
+        if isinstance(node, ast.FunctionDef) and node.name == name)
+    assert homes == [home]
 
 
 def test_cpu_default_backend_is_plain():

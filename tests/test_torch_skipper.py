@@ -210,13 +210,12 @@ def test_skipper_verify_raises_on_a_failed_check(monkeypatch):
 @pytest.mark.parametrize("spec", list(SPECS))
 @pytest.mark.parametrize("gname", ["rmat", "path"])
 def test_one_row_global_tier_equals_ref_skipper(gname, spec):
-    """The card's route, ``tiles_on_card`` (the global tier over one state
-    row of n cells, every tile the pair (0, 0)), given CPU tiles runs the
-    global tier's plain version; that equals ``ref.ref_skipper``, the
-    raw stream's plain version, bit for bit: state, mask, conflicts. A
-    named instance does not change the plain result, and nothing
-    launches."""
-    from repro_torch.core.skipper import stream_tiles, tiles_on_card
+    """The card's route, ``kernel.tiles_on_card`` (the global tier over one
+    state row of n cells, every tile the pair (0, 0)), given CPU tiles runs
+    the global tier's plain version; that equals ``ref.ref_skipper``, the
+    raw stream's plain version, bit for bit: state, mask, conflicts; and
+    nothing launches."""
+    from repro_torch.core.skipper import stream_tiles
     from repro_torch.kernels.skipper_match import ref
 
     _, pg = _pair(ZOO[gname]())
@@ -226,14 +225,12 @@ def test_one_row_global_tier_equals_ref_skipper(gname, spec):
     state = torch.zeros(n, dtype=s.at_rest_dtype)
     matched, conflicts = ref.ref_skipper(state, ut, vt, vector_rounds=2)
     kernel.reset_launch_counts()
-    for instance in (None,) + kernel.INSTANCES:
-        row = torch.zeros(n, dtype=s.vmem_dtype)
-        got = tiles_on_card(row, ut, vt, vector_rounds=2, spec=s,
-                            instance=instance)
-        got = (row.to(s.at_rest_dtype), got[0], got[1].to(torch.int32))
-        for a, b in zip(got, (state, matched, conflicts)):
-            assert a.dtype == b.dtype
-            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    row = torch.zeros(n, dtype=s.vmem_dtype)
+    got = kernel.tiles_on_card(row, ut, vt, vector_rounds=2, spec=s)
+    got = (row.to(s.at_rest_dtype), got[0], got[1].to(torch.int32))
+    for a, b in zip(got, (state, matched, conflicts)):
+        assert a.dtype == b.dtype
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert set(kernel.launch_counts().values()) == {0}
 
 

@@ -258,8 +258,8 @@ WINDOW, WINDOW_ASYNC, BOUNDARY, ASYNC = ("skipper_window_tier_kernel",
                                          "skipper_boundary_kernel",
                                          "skipper_boundary_async_kernel")
 MUTANT_SOURCE = "src/repro_torch/analysis/csrc/mutants.cu"
-#: the analyzer's targets: 36 kernel instances and 6 entry points
-ANALYSIS_TARGETS = 42
+#: the analyzer's targets: 40 kernel instances and 6 entry points
+ANALYSIS_TARGETS = 46
 
 
 def log(*args) -> None:
@@ -952,8 +952,9 @@ def accesses_line(dev, seed: int, tile: int, instance: str):
     """The Fig. 7 analogue: memory accesses per edge of Skipper and the
     three baselines on RMAT scale ACCESS_SCALE, printed only where no
     int32 counter can have wrapped (rounds x the most a round adds stays
-    below 2^31). Also the raw-stream kernel in both its instances against
-    its plain version on the card there, bit for bit and timed: the plain
+    below 2^31). Also the raw-stream kernel in each of its instances (the
+    filtered one too) against its plain version on the card there, bit for
+    bit and timed: the plain
     time of the kernels line, and the kernel's time there in the main
     path's ``instance``. Returns ``(plain_ms, kernel_ms, max_abs_err,
     case)``."""
@@ -972,7 +973,7 @@ def accesses_line(dev, seed: int, tile: int, instance: str):
 
     plain_ms, want = cuda_time(plain)
     err, k_ms = 0, {}
-    for inst in kernel.INSTANCES:
+    for inst in kernel.INSTANCES + (kernel.FILTERED,):
         k_ms[inst], got = cuda_time(
             lambda inst=inst: raw_kernel(ut, vt, n, inst),
             reps=3)
@@ -981,7 +982,7 @@ def accesses_line(dev, seed: int, tile: int, instance: str):
                 f"kernel and plain version disagree ({e})")
         err = max(err, e)
     log(f"raw stream RMAT {ACCESS_SCALE} ({ut.shape[0]} tiles of {tile}): "
-        f"both instances bit-equal to ref_skipper ({plain_ms:.1f} ms); "
+        f"every instance bit-equal to ref_skipper ({plain_ms:.1f} ms); "
         f"kernel ms {json.dumps(k_ms)}")
     # (run, the most one round adds to the counters' total, the most added
     # once)
@@ -1062,7 +1063,9 @@ def phase_raw(dev, edges, seed: int, match_ms: float):
     sk_ms, _ = cuda_time(lambda: skipper(g, tile_size=RAW_TILE, device=dev),
                          reps=3)
     num_tiles = ut.shape[0]
-    instance = kernel.boundary_instance(n, RAW_TILE)
+    instance = (kernel.FILTERED
+                if kernel.takes_filtered(num_tiles, RAW_TILE, dev)
+                else kernel.boundary_instance(n, RAW_TILE))
     k_ms, k_out = cuda_time(
         lambda: raw_kernel(ut, vt, n, instance), reps=3)
     want = (res.state, res.match_mask,

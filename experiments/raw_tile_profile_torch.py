@@ -11,14 +11,18 @@ For each configuration of ``bench/configs`` (and, with ``--scales``, for
 bench's generator on the card for ``--seed``, and is laid out as
 ``skipper()`` lays out the ``raw-resident`` mix (tiles of 512, dispersed).
 The tiles then run through ``kernel.boundary_tier`` on one state row, in
-the instance ``skipper()`` takes there: timed with CUDA events (one warm
-launch, then ``--repeats``), then once with the kernel's cycle profile.
-Every launch's state, matched and conflicts are held bit for bit against
-the first, and their SHA-256 is printed, so that two versions of the
-kernel run in one call can be compared at full scale. One JSON line a
+the instance ``skipper()`` takes there (``kernel.tiles_on_card``: the
+filtered one where ``kernel.takes_filtered`` says so, with the share of
+lanes its filter passed on): timed with CUDA events (one warm launch, then
+``--repeats``), then once with the cycle profile of the single-block
+instance the shape picks (``kernel.boundary_instance``; the filtered one
+has none). Every launch's state, matched and conflicts are held bit for bit
+against the first, and their SHA-256 is printed, so that two versions of
+the kernel run in one call can be compared at full scale. One JSON line a
 shape on stdout; all of them, with the card's name and power limit, in
-``--out``. It reads ``kernel.PROFILE_FIELDS``, so it runs against any
-version of ``src/`` on ``PYTHONPATH``. It needs a card.
+``--out``. It reads ``kernel.PROFILE_FIELDS`` (and the filter's names where
+the kernel has them), so it runs against any version of ``src/`` on
+``PYTHONPATH``. It needs a card.
 """
 from __future__ import annotations
 
@@ -67,12 +71,20 @@ def shape_profile(name: str, config: dict, seed: int, repeats: int) -> dict:
     n, tiles = g.n, ut.shape[0]
     del g
     pairs = torch.zeros((tiles,), dtype=torch.int32, device=dev)
-    instance = kernel.boundary_instance(n, TILE)
+    profiled = kernel.boundary_instance(n, TILE)
+    takes_filtered = getattr(kernel, "takes_filtered", None)
+    instance = (kernel.FILTERED if takes_filtered is not None
+                and takes_filtered(tiles, TILE, dev) else profiled)
+    survivors = (torch.zeros((), dtype=torch.int64, device=dev)
+                 if instance != profiled else None)
 
     def launch(profile=None):
         row = torch.zeros((1, n), dtype=torch.uint8, device=dev)
-        out = kernel.boundary_tier(row, pairs, pairs, ut, vt,
-                                   instance=instance, profile=profile)
+        kw = ({} if survivors is None or profile is not None
+              else {"survivors": survivors})
+        out = kernel.boundary_tier(
+            row, pairs, pairs, ut, vt, profile=profile,
+            instance=profiled if profile is not None else instance, **kw)
         return (row, *out)
 
     first = launch()
@@ -89,6 +101,7 @@ def shape_profile(name: str, config: dict, seed: int, repeats: int) -> dict:
         times.append(start.elapsed_time(stop))
         same &= all(torch.equal(a, b) for a, b in zip(got, first))
         del got
+    passed = None if survivors is None else int(survivors) / (repeats + 1)
     prof = torch.zeros(len(kernel.PROFILE_FIELDS), dtype=torch.int64,
                        device=dev)
     got = launch(prof)
@@ -98,7 +111,10 @@ def shape_profile(name: str, config: dict, seed: int, repeats: int) -> dict:
     per_tile = {f"{k}_per_tile": v / tiles for k, v in cyc.items()}
     return {
         "shape": name, "scale": int(config["scale"]), "n": n,
-        "tiles": tiles, "instance": instance, "ms": times,
+        "tiles": tiles, "instance": instance, "profiled": profiled,
+        "survivor_pct": None if passed is None
+        else 100.0 * passed / int(((ut >= 0) & (ut != vt)).sum()),
+        "ms": times,
         "us_a_tile": 1e3 * min(times) / tiles, "same_every_launch": same,
         "sha256": digest(*first), "cycles": cyc, **per_tile,
     }

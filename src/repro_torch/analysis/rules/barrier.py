@@ -18,6 +18,13 @@ lanes of one warp, not the block. It is accepted only for a kernel named
 in :data:`WARP_ORDERED`, with the reason the data it orders never leaves
 one warp; everywhere else it is an ERROR like a path with no barrier.
 
+Two atomics (``atom``/``red`` on shared memory) with no barrier between
+them never tear, but the order in which lanes' atomics land is the
+hardware's. A pair of them is accepted only for a kernel named in
+:data:`ATOMIC_ORDERED`, with the reason its result does not depend on
+that order; every pair in which either access is a plain load or store is
+checked as above, there too.
+
 Asynchronous copies (``build.py``: TMA, bulk copies, ``cp.async``) are
 ordered by mbarriers, not by CTA barriers, and a CTA barrier does not
 order them:
@@ -62,6 +69,17 @@ WARP_ORDERED: Dict[str, str] = {
         "a query row's scores (sc) are written and read only by the row's "
         "four lanes, which are consecutive lanes of one warp (blockDim is "
         "block_q * 4, a multiple of 32)"),
+}
+
+#: kernels whose shared atomics may land in any order between two barriers,
+#: by name, with the reason the result does not depend on it
+ATOMIC_ORDERED: Dict[str, str] = {
+    "skipper_boundary_async_kernel": (
+        "the filtered instance's in-order block inserts cells into open-"
+        "addressed tables with atomicCAS (a key lands in one slot, whichever "
+        "lane inserts it first), marks shared cells with atomicOr, claims "
+        "with atomicMin (commutative) and commits with atomicExch to 0, "
+        "which no claim undoes; the other instances take no shared atomic"),
 }
 
 #: pending generic access: (line, kind, region, ordered by a warp barrier
@@ -219,11 +237,14 @@ class SmemBarrier(KernelRule):
         kernel = demangle(artifact.mangled).name
         acc = entry.accesses()
         findings: List[Finding] = []
-        waived = 0
+        waived = atomic = 0
         racing: Dict[Tuple[str, bool], List[Tuple[int, int]]] = {}
         for first, second, kind, warp in hazards(entry):
             if warp and kernel in WARP_ORDERED:
                 waived += 1
+            elif (kernel in ATOMIC_ORDERED and kind in ("RAW", "WAR")
+                  and acc[first].kind == acc[second].kind == "rmw"):
+                atomic += 1
             else:
                 racing.setdefault((kind, warp), []).append((first, second))
         for (kind, warp), pairs in sorted(racing.items()):
@@ -250,8 +271,10 @@ class SmemBarrier(KernelRule):
             f"{len({a.region for a in acc.values()})} region(s), "
             f"{len(entry.blocks)} blocks; {waived} pair(s) ordered by "
             f"__syncwarp accepted"
-            + (f" ({WARP_ORDERED[kernel]})" if waived else ""),
+            + (f" ({WARP_ORDERED[kernel]})" if waived else "")
+            + f"; {atomic} pair(s) of atomics accepted"
+            + (f" ({ATOMIC_ORDERED[kernel]})" if atomic else ""),
             data={"accesses": len(acc), "blocks": len(entry.blocks),
-                  "warp_ordered_pairs": waived},
+                  "warp_ordered_pairs": waived, "atomic_pairs": atomic},
         ))
         return findings

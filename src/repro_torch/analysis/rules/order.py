@@ -5,8 +5,9 @@ v-then-u write-back made a later tile see an earlier one's commits; on
 Hopper the loop over tiles inside one block must).
 
 The kernel instance runs on a pinned fixture in which consecutive tiles
-share a vertex — and, in the global tier, a block pair — so any other
-order matches a different edge; its outputs (matched, conflicts, state)
+share a vertex — and, in the global tier, a block pair; over one state row
+(role "row") every tile is the pair (0, 0) — so any other order matches a
+different edge; its outputs (matched, conflicts, state)
 must equal the plain version's in ``kernels/skipper_match/ref.py`` on the
 same CUDA tensors, bit for bit. Any difference is an ERROR. The fixture is
 numpy-seeded at the canonical geometry; :func:`fixture` builds it on any
@@ -34,8 +35,9 @@ SHARED_VERTEX, FIRST, SECOND = 5, 7, 9
 def fixture(role: str, spec, device) -> Dict[str, torch.Tensor]:
     """The pinned inputs of one tier at the canonical geometry, seeded
     with numpy: ``u``, ``v`` (int32 ``[rows, 2 * T]`` for role "window",
-    ``[tiles, T]`` for "boundary"), ``state`` (all ACC, ``spec.vmem``) and,
-    for the global tier, ``blk_u``/``blk_v``."""
+    ``[tiles, T]`` for "boundary" and "row"), ``state`` (all ACC,
+    ``spec.vmem``; one row for "row") and, for the global tier,
+    ``blk_u``/``blk_v``."""
     rng = np.random.default_rng(targets.SEED)
     t, w = targets.TILE, targets.WINDOW
     if role == "window":
@@ -51,19 +53,22 @@ def fixture(role: str, spec, device) -> Dict[str, torch.Tensor]:
         out = {"state": torch.zeros((targets.NUM_WINDOWS, w),
                                     dtype=spec.vmem_dtype, device=device)}
     else:
-        bu = np.array([p[0] for p in PAIRS])
-        bv = np.array([p[1] for p in PAIRS])
+        row = role == "row"
+        bu = np.array([0 if row else p[0] for p in PAIRS])
+        bv = np.array([0 if row else p[1] for p in PAIRS])
         shape = (len(PAIRS), t)
         u = rng.integers(0, w, shape)
         # cross-block pairs address the v row as id - W
         cross = (bu != bv)[:, None]
         v = rng.integers(0, w, shape) + np.where(cross, w, 0)
         u[0, 0] = u[1, 0] = SHARED_VERTEX
-        v[0, 0], v[1, 0] = w + FIRST, w + SECOND
+        v[0, 0], v[1, 0] = (FIRST, SECOND) if row else (w + FIRST,
+                                                        w + SECOND)
         pad = rng.random(shape) < 0.25
         pad[:2, 0] = False
-        out = {"state": torch.zeros((targets.NUM_WINDOWS, w),
-                                    dtype=spec.vmem_dtype, device=device),
+        rows = 1 if row else targets.NUM_WINDOWS
+        out = {"state": torch.zeros((rows, w), dtype=spec.vmem_dtype,
+                                    device=device),
                "blk_u": torch.tensor(bu, dtype=torch.int32, device=device),
                "blk_v": torch.tensor(bv, dtype=torch.int32, device=device)}
     out["u"] = torch.tensor(np.where(pad, -1, u), dtype=torch.int32,
@@ -118,7 +123,7 @@ class TierOrder(KernelRule):
 
     def check_kernel(self, artifact) -> List[Finding]:
         t = artifact.target
-        if t.role not in ("window", "boundary") or t.launch is None:
+        if t.role not in ("window", "boundary", "row") or t.launch is None:
             return []
         x = fixture(t.role, t.spec, torch.device("cuda"))
         got = run_kernel(t, x)

@@ -5,8 +5,9 @@ reference's canonical geometry (``targets.py:27-31``: tile 256, window
 
 * Kernel targets (:class:`KernelTarget`) name one template instance of a
   ``__global__`` function: the asynchronous window tier, the first window
-  tier, the first global tier and the asynchronous global tier (its staged
-  and its device-memory instance) under each (state width, counter width)
+  tier, the first global tier and the asynchronous global tier (its staged,
+  its device-memory and its filtered instance, the last over one state row
+  as the raw stream launches it) under each (state width, counter width)
   pair (the window tier's ring depth is a launch argument, so the shape
   rule adds no instance), the CUDA-core flash
   attention under each (dtype, head dim) the source builds, the bf16
@@ -55,7 +56,8 @@ CPP_TYPES = {"uint8": "unsigned char", "int32": "int",
 class KernelTarget:
     """One template instance of a kernel.
 
-    ``role`` is "window", "boundary" or "flash". ``threads`` is the
+    ``role`` is "window", "boundary", "row" (the global tier over one
+    state row, every tile the pair (0, 0)) or "flash". ``threads`` is the
     block the analysis launches, ``max_threads`` the largest block its
     wrapper admits, and ``setmaxnreg`` the ``(registers, warpgroups)``
     pairs of a kernel whose warpgroups set their registers.
@@ -63,7 +65,7 @@ class KernelTarget:
     ``scale``x the canonical vertex count (same window and tile).
     ``launch`` runs it on CUDA tensors with the signature of
     ``kernel.window_tier`` (role "window") or ``kernel.boundary_tier``
-    (role "boundary"), minus ``spec``.
+    (roles "boundary" and "row"), minus ``spec``.
     """
 
     name: str
@@ -192,6 +194,19 @@ def _matcher_targets() -> List[KernelTarget]:
                     spec=spec,
                     launch=functools.partial(kernel.boundary_tier,
                                              spec=spec, instance=instance)))
+            out.append(KernelTarget(
+                name=f"boundary_async[{vmem},{counter},filtered]",
+                source=kernel.SOURCE, kernel=kernel.BOUNDARY_ASYNC,
+                template=tmpl + ("2",), role="row",
+                threads=kernel.FILTERED_THREADS,
+                max_threads=kernel.FILTERED_THREADS,
+                dynamic_smem=lambda scale: kernel.filtered_smem_bytes(),
+                smem_claim="O(tables + lag): the in-order block's hash "
+                           "tables and the pack's bases, independent of V "
+                           "and of the tile; the ring lies in device memory",
+                spec=spec,
+                launch=functools.partial(kernel.boundary_tier, spec=spec,
+                                         instance=kernel.FILTERED)))
     return out
 
 

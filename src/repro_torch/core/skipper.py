@@ -21,7 +21,10 @@ Where it runs: on a CUDA device the tiles go through the global-tier
 kernel (``kernels/skipper_match/kernel.tiles_on_card``): a raw stream of
 ``n`` vertices is one state row of width ``n`` and every tile the
 same-block pair (0, 0), whose ids all lie below the row's width, so each
-tile reads and writes that one row, in tile order. On the CPU the plain
+tile reads and writes that one row, in tile order. A long stream takes the
+kernel's filtered instance: blocks on every SM drop the lanes whose state
+already reads matched, and one block resolves the rest in tile order, with
+the same result. On the CPU the plain
 version runs (``ref.ref_skipper``: ``engine.tile_pass`` looped over the
 tiles, as the reference's scan does). ``device=None`` means the card and
 raises without one.
@@ -78,7 +81,9 @@ def skipper(
     kernel's id check, ``kernels.id_check``) and ``skipper.gather``; every
     call adds its tiles to the host counter ``skipper.tiles``; while a
     profiler records, the valid edges and those the exact fallback decides
-    add to ``skipper.edges`` / ``skipper.fallback_edges``.
+    add to ``skipper.edges`` / ``skipper.fallback_edges``, and the lanes
+    the kernel resolves in tile order (the filter's survivors) to
+    ``skipper.survivor_lanes``.
     """
     if conflict_method not in CONFLICT_METHODS:
         raise ValueError(f"unknown conflict_method {conflict_method!r}; one "
@@ -94,8 +99,9 @@ def skipper(
             from repro_torch.kernels.skipper_match.kernel import tiles_on_card
 
             row = torch.zeros((n,), dtype=spec.vmem_dtype, device=dev)
-            matched, conflicts = tiles_on_card(row, ut, vt, vector_rounds,
-                                               spec)
+            matched, conflicts = tiles_on_card(
+                row, ut, vt, vector_rounds, spec,
+                counter="skipper.survivor_lanes")
             state = row.to(spec.at_rest_dtype)
             conflicts = conflicts.to(torch.int32)
         else:

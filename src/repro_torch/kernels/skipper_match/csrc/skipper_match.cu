@@ -583,14 +583,16 @@ __device__ __forceinline__ int prefetched_tile(
   return rounds;
 }
 
-// Replaces src/repro/kernels/skipper_match/kernel.py::skipper_boundary_kernel
-// (:196), as skipper_boundary_kernel did, with the same tile arithmetic
-// and the same result bit for bit: ONE block walks the global-tier tiles
-// in schedule order. It stays one block on purpose: on the full-scale RMAT
-// schedule the tiles' dependency chains leave no parallelism across blocks
-// (a host replay of the schedule: critical path 146,921 of 158,396 tiles
-// by block pair, 144,864 by exact vertex, 1.08x and 1.09x), and the result
-// must equal the serial order.
+// The staged and device-memory instances of skipper_boundary_async_kernel
+// (below). Replaces src/repro/kernels/skipper_match/kernel.py::
+// skipper_boundary_kernel (:196), as skipper_boundary_kernel did, with the
+// same tile arithmetic and the same result bit for bit: ONE block walks the
+// global-tier tiles in schedule order. The tiles' endpoint-sharing chains
+// leave little parallelism across blocks (a host replay of the full-scale
+// RMAT schedule: critical path 146,921 of 158,396 tiles by block pair,
+// 144,864 by exact vertex, 1.08x and 1.09x), and the result must equal the
+// serial order; the filtered instance (further down) parallelises what
+// sharing a vertex does not order: the lanes the state already kills.
 // What it changes is what each tile waits for. Bound on this card: ~10
 // bytes a slot, but the limit is the latency chain of each tile, and that
 // kernel's chain began with device-memory loads of the ids and of the
@@ -629,7 +631,7 @@ __device__ __forceinline__ int prefetched_tile(
 // kSpanFields counters, then the device instance's stale lanes and tiles
 // with a later round (the order of kernel.py's PROFILE_FIELDS).
 template <typename S, typename C, bool kStaged>
-__global__ void skipper_boundary_async_kernel(
+__device__ __forceinline__ void boundary_async_body(
     const int* __restrict__ blk_u, const int* __restrict__ blk_v,
     const int* __restrict__ u, const int* __restrict__ v, S* state,
     C* __restrict__ matched, C* __restrict__ conflicts, int window,
@@ -836,6 +838,529 @@ __global__ void skipper_boundary_async_kernel(
         bulk_store(state + size_t(res1) * window, smem_addr(smem + rb), rb);
       bulk_wait_all();
     }
+  }
+}
+
+// ---- the filtered instance: dead lanes dropped on every SM ------------------
+
+// The instances of skipper_boundary_async_kernel: the pair's rows in device
+// memory, in shared memory, or (one state row only) the filtered pass.
+constexpr int kInstanceDevice = 0;
+constexpr int kInstanceStaged = 1;
+constexpr int kInstanceFiltered = 2;
+// its block: every block takes this many threads; the in-order block
+// resolves up to one survivor a thread at a time (a pack)
+constexpr int kFilteredThreads = 1024;
+constexpr int kPack = kFilteredThreads;
+// the ring's slots (tiles): a filter block reads tile t's cells only once
+// the in-order block has resolved every tile before t - kLag + 1, so the
+// ring holds kLag tiles and the filter's snapshot lags at most kLag - 1
+// tiles (about eight times the H100's 132 SMs). While the in-order block
+// has resolved fewer than kLag - kRampLag tiles, the lag is kRampLag plus
+// those: the first tiles' lanes, read against a state with few commits,
+// nearly all survive, and a shorter lag lets the first commits kill more
+constexpr int kLag = 1024;
+constexpr int kRampLag = 64;
+// the most tiles a filter block takes at once (tiles narrower than
+// kFilteredThreads / kFilteredGroup lanes leave threads idle)
+constexpr int kFilteredGroup = 32;
+// the in-order block's hash tables: 2^12 slots for the up to 2 * kPack
+// keys of a pack
+constexpr int kTableBits = 12;
+constexpr int kTable = 1 << kTableBits;
+// a claim: (kTopRound - round) above kRoundShift bits of pack index, so a
+// later round's claims are smaller than an earlier round's, and 0 (no
+// claim ever) marks a cell a pack commit took
+constexpr unsigned kRoundShift = 10;
+constexpr unsigned kTopRound = (1u << 21) - 1;
+constexpr unsigned kNoClaim = 0xFFFFFFFFu;
+constexpr unsigned long long kNoPair = ~0ull;
+constexpr int kNoRound = 0x7FFFFFFF;
+// a wait on another block that lasts beyond this many cycles (about forty
+// seconds) traps: a fault shows as a launch error, never as a hung card
+constexpr long long kSpinLimit = 1ll << 36;
+// the scratch's control words (int32): the filter's ticket and the
+// in-order block's progress, each on a 128-byte line of its own
+constexpr int kTicketWord = 0;
+constexpr int kDoneWord = 32;
+constexpr int kCtrlWords = 64;
+static_assert(kPack == 1 << kRoundShift, "a claim's pack index");
+static_assert(kLag <= kFilteredThreads && kFilteredGroup <= kRampLag &&
+                  kRampLag <= kLag,
+              "the in-order block reads each ring slot's flag in one step, "
+              "and the ramp admits the group of the first unresolved tile");
+
+// The scratch (int32 words, the first filtered_ring_head() of them zeroed
+// by the launch): [control][flags: kLag][counts: kLag][entries: kLag * T int2]
+// [lanes: kLag * T uint16]. Slot t % kLag holds tile t's survivors, in
+// lane order: their (u, v) ids and lanes, `counts` of them; its flag reads
+// t + 1 once they are written.
+__host__ __device__ inline size_t filtered_ring_head() {
+  return kCtrlWords + 2 * size_t(kLag);
+}
+__host__ __device__ inline size_t filtered_scratch_words(int tile) {
+  return filtered_ring_head() + 2 * size_t(kLag) * tile +
+         (size_t(kLag) * tile + 1) / 2;
+}
+
+struct FilteredRing {
+  int* ticket;
+  int* done;
+  int* flags;
+  int* counts;
+  int2* entries;
+  unsigned short* lanes;
+  int tile;
+  __device__ FilteredRing(int* scratch, int T)
+      : ticket(scratch + kTicketWord),
+        done(scratch + kDoneWord),
+        flags(scratch + kCtrlWords),
+        counts(scratch + kCtrlWords + kLag),
+        entries(reinterpret_cast<int2*>(scratch + filtered_ring_head())),
+        lanes(reinterpret_cast<unsigned short*>(
+            scratch + filtered_ring_head() + 2 * size_t(kLag) * T)),
+        tile(T) {}
+};
+
+// Dynamic shared memory of the filtered instance (every block takes it;
+// the filter blocks use the scan words and bases alone):
+// [pair keys: kTable u64][pair claims][cell keys][cell claims][owners:
+// kTable 32-bit][bases: kLag + 1][scan: 32][scalars: 4][commit rounds:
+// kPack int32][shared marks: kTable bytes]
+struct FilteredSmem {
+  unsigned long long* pkey;  // (pack tile, cell) of the tile rounds
+  unsigned* pclaim;
+  int* vkey;  // cell of the pack rounds
+  unsigned* vclaim;
+  int* owner;     // the pack entry that took each cell
+  int* base;      // a pack's first entry of each of its tiles; a filter
+                  // block's first survivor of each tile of its group
+  int* scan;      // block_inclusive_sum's warp totals
+  int* scalars;   // [0]: a filter block's group
+  int* rounds;    // the tile round in which each pack entry commits
+  unsigned char* shared;  // whether two of the pack's entries hold the cell
+  __device__ explicit FilteredSmem(unsigned char* p)
+      : pkey(reinterpret_cast<unsigned long long*>(p)),
+        pclaim(reinterpret_cast<unsigned*>(pkey + kTable)),
+        vkey(reinterpret_cast<int*>(pclaim + kTable)),
+        vclaim(reinterpret_cast<unsigned*>(vkey + kTable)),
+        owner(reinterpret_cast<int*>(vclaim + kTable)),
+        base(owner + kTable),
+        scan(base + kLag + 1),
+        scalars(scan + 32),
+        rounds(scalars + 4),
+        shared(reinterpret_cast<unsigned char*>(rounds + kPack)) {}
+  // marks the cell of slot s as held by two entries: an atomic on the
+  // mark's 32-bit word, as the table's inserts are
+  __device__ void mark_shared(unsigned s) const {
+    atomicOr(reinterpret_cast<unsigned*>(shared) + (s >> 2),
+             1u << (8 * (s & 3)));
+  }
+};
+__host__ __device__ inline size_t filtered_smem() {
+  return size_t(kTable) * (8 + 4 + 4 + 4 + 4 + 1) +
+         4 * size_t(kLag + 1 + 32 + 4 + kPack);
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int x;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
+               : "=r"(x)
+               : "l"(p)
+               : "memory");
+  return x;
+}
+
+__device__ __forceinline__ void st_release(int* p, int x) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(x)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_relaxed(int* p, int x) {
+  asm volatile("st.relaxed.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(x)
+               : "memory");
+}
+
+// the state cell of id `id` in the one row of `window` cells, every tile
+// the pair (0, 0) (pair_cell's rule)
+__device__ __forceinline__ int row_cell(int id, int window) {
+  return id < window ? id : id - window;
+}
+
+// The inclusive sum of x over the block (a whole number of warps); every
+// lane calls it (two barriers inside). Each warp scans the warp totals
+// itself, so `scan` is written once and then only read.
+__device__ __forceinline__ int block_inclusive_sum(int x, int* scan) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) scan[warp] = x;
+  __syncthreads();  // every warp's total is visible
+  int w = lane < warps ? scan[lane] : 0;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, w, o);
+    if (lane >= o) w += y;
+  }
+  const int before = __shfl_sync(0xffffffffu, w, (warp + 31) & 31);
+  if (warp > 0) x += before;
+  __syncthreads();  // every read of `scan` precedes its next writes
+  return x;
+}
+
+// The slot of `key` in an open-addressed table of kTable slots (linear
+// probing), inserting it where it is not there yet; `seen` says whether
+// another insert had put it there.
+__device__ __forceinline__ unsigned table_slot(int* keys, int key,
+                                               bool& seen) {
+  unsigned h = (unsigned(key) * 0x9E3779B1u) >> (32 - kTableBits);
+  for (;;) {
+    const int prev = atomicCAS(keys + h, -1, key);
+    seen = prev == key;
+    if (prev == -1 || seen) return h;
+    h = (h + 1) & (kTable - 1);
+  }
+}
+
+__device__ __forceinline__ unsigned table_slot(unsigned long long* keys,
+                                               unsigned long long key) {
+  unsigned h = unsigned((key * 0x9E3779B97F4A7C15ull) >> (64 - kTableBits));
+  for (;;) {
+    const unsigned long long prev = atomicCAS(keys + h, kNoPair, key);
+    if (prev == kNoPair || prev == key) return h;
+    h = (h + 1) & (kTable - 1);
+  }
+}
+
+// A filter block (every block but block 0): it takes groups of up to
+// kFilteredGroup consecutive tiles in ticket order. Once the in-order block
+// has resolved every tile before the group's last tile - kLag + 1 (the
+// throttle: the ring's slots are free, and the snapshot lags at most kLag
+// - 1 tiles; less at first, kRampLag), each lane reads its two cells
+// (ld.global.cg) and writes its outputs' zeros. State is
+// monotone and written only by commits, in tile order, of tiles the
+// in-order block has already resolved: a lane that reads MCHD at either
+// cell was not free when its tile began, so it stays unmatched with no
+// conflict, blocks no lane and commits nothing, and is final here. Every
+// other valid lane (ACC, or any other reading) survives: it is compacted,
+// in lane order, into its tile's ring slot. Each tile then publishes its
+// flag with release semantics. Padding and self-loops are settled here
+// too; a survivor's outputs are written again only where they are not 0.
+template <typename S, typename C>
+__device__ void filter_tiles(const int* __restrict__ u,
+                             const int* __restrict__ v, const S* state,
+                             C* __restrict__ matched,
+                             C* __restrict__ conflicts, int window,
+                             int num_tiles, FilteredRing ring, FilteredSmem sm) {
+  const int i = threadIdx.x, T = ring.tile;
+  const int g = min(int(blockDim.x) / T, kFilteredGroup);
+  const int groups = (num_tiles + g - 1) / g;
+  const int j = i / T, l = i - j * T;  // this thread's tile and lane
+  for (;;) {
+    if (i == 0) sm.scalars[0] = atomicAdd(ring.ticket, 1);
+    __syncthreads();  // the group is visible
+    const int grp = sm.scalars[0];
+    if (grp >= groups) break;  // uniform over the block
+    const int t0 = grp * g, nt = min(g, num_tiles - t0);
+    if (i == 0) {  // the throttle
+      const long long c0 = clock64();
+      for (;;) {
+        const int d = ld_acquire(ring.done);
+        if (t0 + nt - 1 < d + min(kLag, kRampLag + d)) break;
+        __nanosleep(128);
+        if (clock64() - c0 > kSpinLimit) __trap();
+      }
+    }
+    __syncthreads();
+    const bool mine = j < nt;
+    const int t = t0 + j;
+    const size_t k = size_t(t) * T + l;
+    int uu = -1, vv = -1;
+    bool surv = false;
+    if (mine) {
+      uu = u[k];
+      vv = v[k];
+      if (uu >= 0 && uu != vv)
+        surv = load_cell(state + row_cell(uu, window)) != kMatched &&
+               load_cell(state + row_cell(vv, window)) != kMatched;
+      matched[k] = C(0);  // final unless a survivor matches or conflicts
+      conflicts[k] = C(0);
+    }
+    const int incl = block_inclusive_sum(surv, sm.scan);
+    if (mine && l == 0) sm.base[j] = incl - surv;
+    __syncthreads();  // each tile's first rank is visible
+    const int slot = t % kLag;
+    if (surv) {
+      const size_t e = size_t(slot) * T + (incl - 1 - sm.base[j]);
+      ring.entries[e] = make_int2(uu, vv);
+      ring.lanes[e] = static_cast<unsigned short>(l);
+    }
+    const bool last = mine && l == T - 1;
+    if (last) ring.counts[slot] = incl - sm.base[j];
+    if (surv || last) __threadfence();  // entries and count before flags
+    __syncthreads();
+    if (i < nt) st_release(ring.flags + (t0 + i) % kLag, t0 + i + 1);
+  }
+}
+
+// The in-order block (block 0): the survivors of consecutive filtered
+// tiles, up to kPack of them (a pack: one entry a thread), in (tile, lane)
+// order, strictly in tile order. For each pack:
+//   * every ready tile's flag is acquired and the pack is the longest run
+//     of ready tiles from the first unresolved one whose survivors fit;
+//   * each entry re-reads its two cells (the state after every tile
+//     before the pack): an entry with a cell MCHD is not free at its
+//     tile's start (as in the filter) and is final;
+//   * the pack's mask: a tile's result is the sequential greedy over its
+//     lanes (match_tile's rounds and fallback, engine.py), so the pack's
+//     is the sequential greedy over its entries in pack order. An entry
+//     none of whose cells another free entry holds (the cell table marks
+//     a cell inserted twice) commits at once, and neither blocks nor is
+//     blocked. First-claim rounds over the others compute the rest: an
+//     entry claims its two cells (atomicMin of a round-tagged index into
+//     the cell table), is dead once a commit took one (its claim returns
+//     0), and commits where it holds both. A dying entry's last claim can
+//     only delay a later entry by a round, and the smallest live entry
+//     always commits or dies, so the mask is the greedy's however the
+//     claims interleave;
+//   * the conflicts: an entry is free at its tile's round 0 when no commit
+//     of an earlier tile of the pack took a cell (the cells' owners), and
+//     each tile then runs its vector rounds as match_tile does, its
+//     blocked test among the free lanes of its own tile (claims on a table
+//     of (tile, cell) pairs), a commit of round r taking its cells from
+//     round r + 1 (the owners and the round each commits in). Only an
+//     entry that shares a cell can be blocked; a pack without one skips
+//     the rounds. Later rounds only add to the mask, which the pack's
+//     rounds already hold;
+//   * the outputs that are not 0 (the filter wrote the zeros before its
+//     flag), the commits into the state, and the progress that lets the
+//     filter blocks on. It is a relaxed store: every load of the
+//     ring's slots it frees has returned, and a filter may read the state
+//     at any age.
+// Entries the filter dropped are not free at their tile, so they neither
+// block nor commit: the result is the serial order's, bit for bit, however
+// stale the filter's snapshot was. Shared memory: between two barriers the
+// block only reads it, only stores to it, or only updates it with atomics
+// (smem-barrier's ATOMIC_ORDERED).
+template <typename S, typename C>
+__device__ void resolve_in_order(S* state, C* __restrict__ matched,
+                                 C* __restrict__ conflicts, int window,
+                                 int num_tiles, int vector_rounds,
+                                 FilteredRing ring, FilteredSmem sm,
+                                 unsigned long long* survivors) {
+  const int i = threadIdx.x, T = ring.tile;
+  for (int s = i; s < kTable; s += blockDim.x) {
+    sm.pkey[s] = kNoPair;
+    sm.pclaim[s] = kNoClaim;
+    sm.vkey[s] = -1;
+    sm.vclaim[s] = kNoClaim;
+    sm.owner[s] = -1;
+    sm.shared[s] = 0;
+  }
+  sm.rounds[i] = kNoRound;
+  __syncthreads();
+  int done = 0;
+  unsigned long long passed = 0;
+  while (done < num_tiles) {
+    // the pack: ready tiles from `done` whose survivors fit
+    const int span = min(kLag, num_tiles - done);
+    int c = kPack + 1;
+    if (i < span) {
+      const int slot = (done + i) % kLag;
+      if (ld_acquire(ring.flags + slot) == done + i + 1)
+        c = __ldcg(ring.counts + slot);
+    }
+    const int incl = block_inclusive_sum(c, sm.scan);
+    const bool fits = i < span && incl <= kPack;
+    const int n = __syncthreads_count(fits);
+    if (n == 0) {  // tile `done` is not filtered yet
+      if (i == 0) {
+        const long long c0 = clock64();
+        while (ld_acquire(ring.flags + done % kLag) != done + 1) {
+          __nanosleep(32);
+          if (clock64() - c0 > kSpinLimit) __trap();
+        }
+      }
+      __syncthreads();
+      continue;
+    }
+    if (fits) sm.base[i] = incl - c;
+    if (i == n - 1) sm.base[n] = incl;
+    __syncthreads();  // the pack's bases are visible
+    const int total = sm.base[n];
+    // this thread's entry: its tile j (the last with base <= i), its ids
+    const bool have = i < total;
+    int j = 0, b0 = 0, b1 = 0, cu = 0, cv = 0;
+    size_t k = 0;
+    bool fr = false;
+    if (have) {
+      int lo = 0, hi = n - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (sm.base[mid] <= i) lo = mid; else hi = mid - 1;
+      }
+      j = lo;
+      b0 = sm.base[j];
+      b1 = sm.base[j + 1];
+      const size_t e = size_t((done + j) % kLag) * T + (i - b0);
+      const int2 ids = __ldcg(ring.entries + e);
+      k = size_t(done + j) * T + __ldcg(ring.lanes + e);
+      cu = row_cell(ids.x, window);
+      cv = row_cell(ids.y, window);
+      fr = load_cell(state + cu) == 0 && load_cell(state + cv) == 0;
+    }
+    unsigned su = 0, sv = 0;
+    __syncthreads();  // every read of the bases precedes the table's inserts
+    if (fr) {
+      bool seen_u, seen_v;
+      su = table_slot(sm.vkey, cu, seen_u);
+      sv = table_slot(sm.vkey, cv, seen_v);
+      if (seen_u) sm.mark_shared(su);
+      if (seen_v) sm.mark_shared(sv);
+    }
+    __syncthreads();  // the cell table and its marks are complete
+    // the pack's mask: an entry that shares no cell commits (its cells are
+    // its own: no other entry reads their slots); the others take
+    // first-claim rounds, a round's commits beside the next round's claims
+    const bool shared = fr && (sm.shared[su] | sm.shared[sv]);
+    bool won = fr && !shared, active = shared;
+    const bool any_shared = __syncthreads_or(shared);
+    bool commit = false;
+    for (unsigned r = 0; any_shared; ++r) {
+      if (commit) {
+        atomicExch(sm.vclaim + su, 0u);
+        atomicExch(sm.vclaim + sv, 0u);
+        atomicExch(sm.owner + su, i);
+        atomicExch(sm.owner + sv, i);
+        commit = false;
+      }
+      const unsigned key = ((kTopRound - r) << kRoundShift) | unsigned(i);
+      if (active) {
+        const unsigned ou = atomicMin(sm.vclaim + su, key);
+        const unsigned ov = atomicMin(sm.vclaim + sv, key);
+        active = ou != 0u && ov != 0u;
+      }
+      if (!__syncthreads_or(active)) break;
+      // commits are cell-disjoint: an entry that holds both its cells
+      // holds them against every claim of the round
+      commit = active && sm.vclaim[su] == key && sm.vclaim[sv] == key;
+      if (commit) {
+        won = true;
+        active = false;
+      }
+      __syncthreads();  // every read of the claims precedes the commits
+    }
+    // the conflicts: each tile's vector rounds among its own free lanes
+    int conf = 0;
+    unsigned pu = 0, pv = 0;
+    bool paired = false;
+    if (vector_rounds > 0 && any_shared) {  // uniform over the block
+      bool tile_free = false;
+      if (shared) {
+        const int ou = sm.owner[su], ov = sm.owner[sv];
+        tile_free = !(ou >= 0 && ou < b0) && !(ov >= 0 && ov < b0);
+      }
+      __syncthreads();  // every read of the owners precedes the pair table
+      if (tile_free) {
+        const unsigned long long tile_key = (unsigned long long)j << 32;
+        pu = table_slot(sm.pkey, tile_key | unsigned(cu));
+        pv = table_slot(sm.pkey, tile_key | unsigned(cv));
+        paired = true;
+      }
+      for (int r = 0;; ++r) {
+        const unsigned key = ((kTopRound - r) << kRoundShift) | unsigned(i);
+        if (tile_free) {
+          atomicMin(sm.pclaim + pu, key);
+          atomicMin(sm.pclaim + pv, key);
+        }
+        __syncthreads();  // every claim of the round is in
+        const bool blocked =
+            tile_free && (sm.pclaim[pu] != key || sm.pclaim[pv] != key);
+        conf += blocked;
+        if (r + 1 == vector_rounds || !__syncthreads_or(blocked)) break;
+        if (tile_free && !blocked) sm.rounds[i] = r;
+        __syncthreads();  // the round's commits are visible
+        // a blocked lane is free next round unless a commit of its own
+        // tile took a cell by now
+        if (blocked) {
+          const int ou = sm.owner[su], ov = sm.owner[sv];
+          tile_free = !(ou >= b0 && ou < b1 && sm.rounds[ou] <= r) &&
+                      !(ov >= b0 && ov < b1 && sm.rounds[ov] <= r);
+        } else {
+          tile_free = false;
+        }
+        __syncthreads();  // every read of the rounds precedes the claims
+      }
+    }
+    __syncthreads();  // every read of the tables precedes their clearing
+    if (won) {  // the filter wrote the zeros, before its flag
+      matched[k] = C(1);
+      state[cu] = S(kMatched);
+      state[cv] = S(kMatched);
+    }
+    if (conf > 0) conflicts[k] = C(conf);
+    if (fr) {  // the tables' slots this entry used, emptied
+      sm.vkey[su] = -1;
+      sm.vclaim[su] = kNoClaim;
+      sm.owner[su] = -1;
+      sm.shared[su] = 0;
+      sm.vkey[sv] = -1;
+      sm.vclaim[sv] = kNoClaim;
+      sm.owner[sv] = -1;
+      sm.shared[sv] = 0;
+    }
+    if (paired) {
+      sm.pkey[pu] = kNoPair;
+      sm.pclaim[pu] = kNoClaim;
+      sm.pkey[pv] = kNoPair;
+      sm.pclaim[pv] = kNoClaim;
+    }
+    sm.rounds[i] = kNoRound;
+    passed += total;
+    done += n;
+    __syncthreads();  // commits and clearing precede the next pack
+    if (i == 0) st_relaxed(ring.done, done);
+  }
+  if (i == 0 && survivors != nullptr) atomicAdd(survivors, passed);
+}
+
+// skipper_boundary_async_kernel: kInstance picks the instance. Device
+// (kInstanceDevice) and staged (kInstanceStaged): one block of T lanes,
+// boundary_async_body. Filtered (kInstanceFiltered, one state row, every
+// tile the pair (0, 0), the fallback on): a cooperative grid of
+// kFilteredThreads-thread blocks, every block resident; block 0 is the
+// in-order block (resolve_in_order), the others filter (filter_tiles).
+// Neither waits on a block that may not run: the filters wait only on the
+// in-order block's progress, which needs only tiles already handed out.
+// `tile` is the tile width (the filtered instance's blocks are wider);
+// `scratch` the filtered instance's ring and `survivors` (or null) the
+// lanes it passed to its in-order block, added.
+template <typename S, typename C, int kInstance>
+__global__ void skipper_boundary_async_kernel(
+    const int* __restrict__ blk_u, const int* __restrict__ blk_v,
+    const int* __restrict__ u, const int* __restrict__ v, S* state,
+    C* __restrict__ matched, C* __restrict__ conflicts, int window,
+    int num_tiles, int vector_rounds, int fallback,
+    unsigned long long* __restrict__ profile, int tile, int* scratch,
+    unsigned long long* survivors) {
+  if constexpr (kInstance == kInstanceFiltered) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const FilteredSmem sm(smem);
+    const FilteredRing ring(scratch, tile);
+    if (blockIdx.x == 0)
+      resolve_in_order<S, C>(state, matched, conflicts, window, num_tiles,
+                             vector_rounds, ring, sm, survivors);
+    else
+      filter_tiles<S, C>(u, v, state, matched, conflicts, window, num_tiles,
+                         ring, sm);
+  } else {
+    boundary_async_body<S, C, kInstance == kInstanceStaged>(
+        blk_u, blk_v, u, v, state, matched, conflicts, window, num_tiles,
+        vector_rounds, fallback, profile);
   }
 }
 
@@ -1183,22 +1708,63 @@ int launch_boundary_async(const int* blk_u, const int* blk_v, const int* u,
                           const int* v, void* state, void* matched,
                           void* conflicts, int num_tiles, int tile_size,
                           int window, int vector_rounds, int fallback,
-                          int staged, int smem_bytes, void* profile,
-                          void* stream) {
+                          int instance, int smem_bytes, void* profile,
+                          void* scratch, size_t scratch_words,
+                          void* survivors, void* stream) {
+  if (tile_size > kMaxAsyncBoundaryTile) return int(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  S* const rows = static_cast<S*>(state);
+  C* const m = static_cast<C*>(matched);
+  C* const c = static_cast<C*>(conflicts);
+  auto* const prof = static_cast<unsigned long long*>(profile);
+  int* const ring = static_cast<int*>(scratch);
+  auto* const surv = static_cast<unsigned long long*>(survivors);
+  if (instance == kInstanceFiltered) {
+    // the in-order pass resolves the greedy: the fallback is on; the
+    // filters need the ring, and the cycle profile is the others'
+    if (!fallback || scratch == nullptr || profile != nullptr ||
+        size_t(smem_bytes) < filtered_smem() ||
+        scratch_words < filtered_scratch_words(tile_size))
+      return int(cudaErrorInvalidValue);
+    auto kernel = skipper_boundary_async_kernel<S, C, kInstanceFiltered>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err == cudaSuccess)  // the ring's control words, flags and counts
+      err = cudaMemsetAsync(scratch, 0, 4 * filtered_ring_head(), st);
+    if (err != cudaSuccess) return int(err);
+    int device = 0, sms = 0, per_sm = 0;
+    err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, kFilteredThreads, smem_bytes);
+    if (err != cudaSuccess) return int(err);
+    const int grid = per_sm * sms;  // every block resident: cooperative
+    if (grid < 2) return int(cudaErrorCooperativeLaunchTooLarge);
+    void* args[] = {&blk_u,    &blk_v,  &u,         &v,
+                    (void*)&rows, (void*)&m, (void*)&c, &window,
+                    &num_tiles, &vector_rounds, &fallback, (void*)&prof,
+                    &tile_size, (void*)&ring, (void*)&surv};
+    return int(cudaLaunchCooperativeKernel(
+        reinterpret_cast<void*>(kernel), dim3(grid), dim3(kFilteredThreads),
+        args, size_t(smem_bytes), st));
+  }
+  const bool staged = instance == kInstanceStaged;
   if (size_t(smem_bytes) < boundary_async_smem<S>(window, tile_size, staged))
     return int(cudaErrorInvalidValue);
-  if (tile_size > kMaxAsyncBoundaryTile) return int(cudaErrorInvalidValue);
   if (staged && (size_t(window) * sizeof(S)) % 16 != 0)
     return int(cudaErrorInvalidValue);  // bulk copies move 16-byte units
-  auto kernel = staged ? skipper_boundary_async_kernel<S, C, true>
-                       : skipper_boundary_async_kernel<S, C, false>;
+  auto kernel = staged
+                    ? skipper_boundary_async_kernel<S, C, kInstanceStaged>
+                    : skipper_boundary_async_kernel<S, C, kInstanceDevice>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return int(err);
-  kernel<<<1, tile_size, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      blk_u, blk_v, u, v, static_cast<S*>(state), static_cast<C*>(matched),
-      static_cast<C*>(conflicts), window, num_tiles, vector_rounds, fallback,
-      static_cast<unsigned long long*>(profile));
+  kernel<<<1, tile_size, smem_bytes, st>>>(
+      blk_u, blk_v, u, v, rows, m, c, window, num_tiles, vector_rounds,
+      fallback, prof, tile_size, ring, surv);
   return int(cudaGetLastError());
 }
 
@@ -1240,18 +1806,28 @@ int launch_boundary_async(const int* blk_u, const int* blk_v, const int* u,
   extern "C" int skipper_boundary_async_##SN##_##CN(                           \
       const int* blk_u, const int* blk_v, const int* u, const int* v,          \
       void* state, void* matched, void* conflicts, int num_tiles,              \
-      int tile_size, int window, int vector_rounds, int fallback, int staged,  \
-      int smem_bytes, void* profile, void* stream) {                           \
-    return launch_boundary_async<S, C>(blk_u, blk_v, u, v, state, matched,     \
-                                       conflicts, num_tiles, tile_size,        \
-                                       window, vector_rounds, fallback,        \
-                                       staged, smem_bytes, profile, stream);   \
+      int tile_size, int window, int vector_rounds, int fallback,              \
+      int instance, int smem_bytes, void* profile, void* scratch,              \
+      size_t scratch_words, void* survivors, void* stream) {                   \
+    return launch_boundary_async<S, C>(                                        \
+        blk_u, blk_v, u, v, state, matched, conflicts, num_tiles, tile_size,   \
+        window, vector_rounds, fallback, instance, smem_bytes, profile,        \
+        scratch, scratch_words, survivors, stream);                            \
   }
 
 SKIPPER_ENTRY_POINTS(uint8, uint8_t, uint8, uint8_t)
 SKIPPER_ENTRY_POINTS(uint8, uint8_t, int32, int32_t)
 SKIPPER_ENTRY_POINTS(int32, int32_t, uint8, uint8_t)
 SKIPPER_ENTRY_POINTS(int32, int32_t, int32, int32_t)
+
+// The filtered instance's geometry, for the wrapper: its block, its ring's
+// slots, its dynamic shared memory and its scratch's int32 words.
+extern "C" int skipper_filtered_threads() { return kFilteredThreads; }
+extern "C" int skipper_filtered_lag() { return kLag; }
+extern "C" size_t skipper_filtered_smem() { return filtered_smem(); }
+extern "C" size_t skipper_filtered_scratch_words(int tile) {
+  return filtered_scratch_words(tile);
+}
 
 extern "C" const char* skipper_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -23,10 +23,14 @@ Wrappers:
   memory, its ``device`` instance leaves the state in device memory and
   reads each tile's cells a tile ahead (its plain twin:
   ``ref.ref_boundary_pass_prefetched``). The shape picks the instance
-  (:func:`boundary_instance`).
+  (:func:`boundary_instance`). Its ``filtered`` instance (one state row)
+  spreads over every SM: filter blocks drop the lanes the state already
+  kills, and one in-order block resolves the survivors (its plain twin:
+  ``ref.ref_skipper_filtered``).
 * :func:`tiles_on_card` — the raw stream's tiles through
   :func:`boundary_tier` as one state row, every tile the pair (0, 0): the
-  one launch of ``skipper()`` and of the engine's slab pass.
+  one launch of ``skipper()`` and of the engine's slab pass; a long stream
+  takes the filtered instance (:func:`takes_filtered`).
 * :func:`boundary_tier_sync` — ``skipper_boundary_kernel``, the first
   global tier (ids and state read from device memory on each tile's
   chain), kept as the yardstick of the one above and as the body the
@@ -104,8 +108,30 @@ PREFETCH_TILES = 1
 #: the device instance's own static array: the commit lists' filter, a
 #: byte tag for each of ``kFilterSlots`` slots
 FILTER_SMEM = 8192
-#: the two instances of the asynchronous global tier
+#: the two instances of the asynchronous global tier that the shape picks
 INSTANCES = ("staged", "device")
+#: its instance over one state row that spreads over the card
+#: (``kInstanceFiltered``): blocks of ``FILTERED_THREADS`` threads, every
+#: block resident (a cooperative launch); block 0 resolves the survivors of
+#: up to ``FILTERED_THREADS`` lanes at a time in tile order, the others drop
+#: the lanes whose state reads MCHD. A filter block reads a tile's cells
+#: once the in-order block has resolved all but ``FILTERED_LAG - 1`` tiles
+#: before it (``kLag``: the ring's slots; fewer at first, ``kRampLag``)
+FILTERED = "filtered"
+#: each instance's code at the C entry (``kInstance*`` in the CUDA source)
+_INSTANCE_CODES = {"device": 0, "staged": 1, FILTERED: 2}
+#: (``kFilteredThreads``, ``kLag``: the CUDA source is the one place they
+#: are set, and a card test holds these, the CPU twin's defaults, to it)
+FILTERED_THREADS = 1024
+FILTERED_LAG = 1024
+#: ``tiles_on_card`` takes the filtered instance for streams of at least
+#: this many tiles a SM of the card; shorter ones (the packer's step, the
+#: distributed slab, the fuzzer's streams) keep the single-block instance.
+#: On the H100 (``experiments/filtered_threshold_torch.py``: tiles of 32,
+#: 256 and 512, on a fresh and on a half-matched row) the filtered call is
+#: slower at one tile, even from 2 to 8 tiles, faster from 16, and takes
+#: 0.27-0.42 of the single block's time at one tile a SM
+FILTERED_TILES_PER_SM = 1
 #: static shared memory of the asynchronous global tier: its mbarriers and,
 #: sized for ``MAX_THREADS`` lanes, the free flags and the free list
 ASYNC_STATIC_SMEM = (8 * (2 * RING_STAGES + 1) + MAX_THREADS
@@ -153,8 +179,16 @@ def _declare(lib: ctypes.CDLL) -> None:
             fn.argtypes = [_VP] * 7 + [_I] * 5 + [_VP]
             fn.restype = _I
             fn = getattr(lib, f"skipper_boundary_async_{s}_{c}")
-            fn.argtypes = [_VP] * 7 + [_I] * 7 + [_VP] * 2
+            fn.argtypes = ([_VP] * 7 + [_I] * 7 + [_VP] * 2
+                           + [ctypes.c_size_t] + [_VP] * 2)
             fn.restype = _I
+    for name in ("skipper_filtered_threads", "skipper_filtered_lag"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = _I
+    lib.skipper_filtered_smem.argtypes = []
+    lib.skipper_filtered_smem.restype = ctypes.c_size_t
+    lib.skipper_filtered_scratch_words.argtypes = [_I]
+    lib.skipper_filtered_scratch_words.restype = ctypes.c_size_t
     lib.skipper_error_string.argtypes = [_I]
     lib.skipper_error_string.restype = ctypes.c_char_p
 
@@ -248,6 +282,34 @@ def boundary_async_smem_bytes(window: int, tile_size: int,
     rows = (2 * window * spec.vmem_bytes if staged
             else (PREFETCH_TILES + 1) * 16 * tile_size + 16)
     return rows + RING_STAGES * 8 * TILES_PER_STAGE * (1 + tile_size)
+
+
+def filtered_smem_bytes() -> int:
+    """Dynamic shared memory of the filtered instance's blocks
+    (``filtered_smem`` in the CUDA source): the in-order block's hash
+    tables (2^12 slots of pair keys, claims, cell keys, claims, owners and
+    shared marks), the pack's bases, scan words and commit rounds."""
+    return int(_library().skipper_filtered_smem())
+
+
+def filtered_scratch_words(tile_size: int) -> int:
+    """int32 words of the filtered instance's scratch in device memory
+    (``filtered_scratch_words`` in the CUDA source): control words, the
+    ring's flags and counts (zeroed by the launch), then ``kLag`` ring
+    slots of ``tile_size`` survivors, their ``(u, v)`` ids and lanes."""
+    return int(_library().skipper_filtered_scratch_words(tile_size))
+
+
+def takes_filtered(num_tiles: int, tile_size: int, device) -> bool:
+    """Whether :func:`tiles_on_card` launches the filtered instance: on a
+    card, for tiles the asynchronous global tier takes, in a stream of at
+    least :data:`FILTERED_TILES_PER_SM` tiles for each of the card's SMs.
+    The rule reads only the input's shape and the card."""
+    device = torch.device(device)
+    if device.type != "cuda" or tile_size > BOUNDARY_ASYNC_MAX_THREADS:
+        return False
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return num_tiles >= FILTERED_TILES_PER_SM * sms
 
 
 def boundary_instance(window: int, tile_size: int,
@@ -494,6 +556,7 @@ def boundary_tier(
     instance: Optional[str] = None,
     profile: Optional[torch.Tensor] = None,
     check_ids: bool = True,
+    survivors: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Global tier: the block-pair grouped tiles in schedule order, against
     ``state_rows`` spec.vmem[num_windows, window], updated **in place**.
@@ -518,13 +581,25 @@ def boundary_tier(
     waits for the card: only for a caller that has
     checked every id it can pass, once, as the distributed matcher's
     rounds do (``core/distributed.py``).
+
+    ``instance=FILTERED`` (:data:`FILTERED`) launches the filtered
+    instance: one state row (every tile the pair (0, 0)), the fallback on,
+    no profile; the result is the same bit for bit. Its ``survivors``, an
+    int64 scalar on the card, has the lanes the filter passed on to the
+    in-order block added to it, without a wait.
     """
     spec = resolve_spec(spec)
     num_tiles, tile_size, num_windows, window = _boundary_args(
         state_rows, blk_u, blk_v, u_tiles, v_tiles, spec, vector_rounds)
     if instance is not None:
-        _require(instance in INSTANCES,
-                 f"instance must be one of {INSTANCES}, got {instance!r}")
+        _require(instance in INSTANCES + (FILTERED,),
+                 f"instance must be one of {INSTANCES + (FILTERED,)}, got "
+                 f"{instance!r}")
+    if survivors is not None:
+        _require(instance == FILTERED and survivors.device == u_tiles.device
+                 and survivors.dtype == torch.int64 and survivors.dim() == 0,
+                 "survivors must be an int64 scalar on the tiles' device, "
+                 "for the filtered instance")
     if state_rows.device.type == "cpu":
         from repro_torch.kernels.skipper_match.ref import ref_boundary_pass
 
@@ -543,6 +618,12 @@ def boundary_tier(
                                   v_tiles, vector_rounds=vector_rounds,
                                   fallback=fallback, spec=spec,
                                   check_ids=check_ids)
+    if instance == FILTERED:
+        _require(num_windows == 1 and fallback and profile is None,
+                 "the filtered global tier takes one state row, with the "
+                 "fallback on and no profile")
+        return _launch_filtered(state_rows, blk_u, blk_v, u_tiles, v_tiles,
+                                vector_rounds, spec, check_ids, survivors)
     # the staged instance's bulk copies move the rows in 16-byte units
     off = state_rows.data_ptr() % 16
     fit = boundary_instance(window, tile_size, spec)
@@ -580,8 +661,39 @@ def boundary_tier(
     err = fn(blk_u.data_ptr(), blk_v.data_ptr(), u_tiles.data_ptr(),
              v_tiles.data_ptr(), state_rows.data_ptr(), matched.data_ptr(),
              conflicts.data_ptr(), num_tiles, tile_size, window,
-             vector_rounds, int(fallback), int(staged), smem,
-             None if profile is None else profile.data_ptr(), stream)
+             vector_rounds, int(fallback), _INSTANCE_CODES[instance], smem,
+             None if profile is None else profile.data_ptr(), None, 0, None,
+             stream)
+    _check_launch(BOUNDARY_ASYNC, err)
+    tracing.launched(BOUNDARY_ASYNC)
+    return matched, conflicts
+
+
+def _launch_filtered(state_rows, blk_u, blk_v, u_tiles, v_tiles,
+                     vector_rounds, spec, check_ids, survivors):
+    """:func:`boundary_tier`'s filtered instance on the card: one
+    cooperative launch over a fresh scratch (the launch zeroes its
+    head)."""
+    num_tiles, tile_size = u_tiles.shape
+    window = state_rows.shape[1]
+    matched = torch.empty(u_tiles.shape, dtype=spec.counter_dtype,
+                          device=u_tiles.device)
+    conflicts = torch.empty_like(matched)
+    if num_tiles == 0:
+        return matched, conflicts
+    if check_ids:
+        _check_boundary_ids(blk_u, blk_v, u_tiles, v_tiles, 1, window)
+    words = filtered_scratch_words(tile_size)
+    scratch = torch.empty((words,), dtype=torch.int32, device=u_tiles.device)
+    fn = getattr(_library(),
+                 f"skipper_boundary_async_{spec.vmem}_{spec.counter}")
+    stream = torch.cuda.current_stream(u_tiles.device).cuda_stream
+    err = fn(None, None, u_tiles.data_ptr(), v_tiles.data_ptr(),
+             state_rows.data_ptr(), matched.data_ptr(), conflicts.data_ptr(),
+             num_tiles, tile_size, window, vector_rounds, 1,
+             _INSTANCE_CODES[FILTERED], filtered_smem_bytes(), None,
+             scratch.data_ptr(), words,
+             None if survivors is None else survivors.data_ptr(), stream)
     _check_launch(BOUNDARY_ASYNC, err)
     tracing.launched(BOUNDARY_ASYNC)
     return matched, conflicts
@@ -589,14 +701,17 @@ def boundary_tier(
 
 def tiles_on_card(row: torch.Tensor, ut: torch.Tensor, vt: torch.Tensor,
                   vector_rounds: int = 1, spec: Optional[StateSpec] = None,
-                  check_ids: bool = True):
+                  check_ids: bool = True, counter: Optional[str] = None):
     """The raw stream's tiles (``core/skipper.stream_tiles``) through
     :func:`boundary_tier`: ``row``, a contiguous [n] state tensor of a
     kernel width (uint8 or int32), is the one state row, updated **in
     place**, and every tile the pair (0, 0). The kernel runs at the row's
-    width; ``spec`` sets the counter width; ``check_ids`` as there.
-    Returns ``(matched bool, conflicts spec.counter)``, of ``ut``'s
-    shape."""
+    width, in the filtered instance where :func:`takes_filtered` says so;
+    ``spec`` sets the counter width; ``check_ids`` as there. While a
+    profiler records, the lanes resolved in tile order add to the device
+    counter ``counter``, if named: the filter's survivors, or every valid
+    lane where one block walks the tiles. Returns ``(matched bool,
+    conflicts spec.counter)``, of ``ut``'s shape."""
     n = row.shape[0]
     spec = dataclasses.replace(resolve_spec(spec),
                                vmem=str(row.dtype).removeprefix("torch."))
@@ -604,11 +719,22 @@ def tiles_on_card(row: torch.Tensor, ut: torch.Tensor, vt: torch.Tensor,
         spec.validate_rounds(vector_rounds)
         zero = torch.zeros(ut.shape, dtype=spec.counter_dtype,
                            device=ut.device)
+        if counter is not None:
+            tracing.count_device(counter, 0)
         return zero > 0, zero
     pairs = torch.zeros((ut.shape[0],), dtype=torch.int32, device=ut.device)
+    filtered = takes_filtered(ut.shape[0], ut.shape[1], ut.device)
+    survivors = None
+    if counter is not None and tracing.recording():
+        survivors = (torch.zeros((), dtype=torch.int64, device=ut.device)
+                     if filtered else ((ut >= 0) & (ut != vt)).sum())
     matched, conflicts = boundary_tier(
         row.reshape(1, n), pairs, pairs, ut, vt, vector_rounds=vector_rounds,
-        spec=spec, check_ids=check_ids)
+        spec=spec, check_ids=check_ids,
+        instance=FILTERED if filtered else None,
+        survivors=survivors if filtered else None)
+    if survivors is not None:
+        tracing.count_device(counter, survivors)
     return matched > 0, conflicts
 
 

@@ -22,6 +22,10 @@ the main path calls them when a card is present.
   (``core/skipper.py``), which on the card is the global tier over one
   state row with every tile the same-block pair (0, 0): ``tile_pass``
   looped over the tiles on the full state, as the reference's scan does.
+* :func:`ref_skipper_filtered` — the same result computed as the global
+  tier's filtered instance computes it: a filter against a stale snapshot
+  of the state, then the survivors resolved in packs, in tile order. No
+  path calls it; the tests pin it to :func:`ref_skipper`.
 """
 from __future__ import annotations
 
@@ -271,3 +275,130 @@ def ref_skipper(
             conflict_method=conflict_method,
         )
     return matched, conflicts
+
+
+def ref_skipper_filtered(
+    state: torch.Tensor,        # [n], updated in place
+    u_tiles: torch.Tensor,      # int32[num_tiles, T] vertex ids
+    v_tiles: torch.Tensor,
+    *,
+    vector_rounds: int = 1,
+    lag: Optional[int] = None,
+    pack: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, int]]:
+    """:func:`ref_skipper`'s result, computed as the filtered instance of
+    ``skipper_boundary_async_kernel`` computes it (``filter_tiles`` and
+    ``resolve_in_order`` in the CUDA source), in two phases:
+
+    * the filter: tile t's lanes are read against the state once every
+      tile before ``t - lag`` is resolved (``lag=None``: against the state
+      as it comes, every tile at once); a valid lane with a cell MCHD is
+      final (unmatched, no conflict), the others survive, in lane order;
+    * the in-order pass: packs of consecutive filtered tiles, as many as
+      fit ``pack`` survivors (``kernel.FILTERED_THREADS`` by default; at
+      least one tile). A pack re-reads its survivors' cells; its mask is
+      the sequential greedy over its free survivors in (tile, lane) order,
+      by first-claim rounds over the pack; an entry is free at its tile's
+      round 0 unless a commit of an earlier tile of the pack took a cell,
+      and each tile then runs its vector rounds among its own free lanes
+      for the conflicts.
+
+    The kernel's lag lies between 0 and ``kernel.FILTERED_LAG - 1`` and
+    moves with timing; any lag gives the same result. Returns
+    ``(matched bool[num_tiles, T], conflicts int32[...], stats)``, the
+    first two as :func:`ref_skipper`'s, ``stats`` the counts
+    ``survivor_lanes`` (the lanes passed to the in-order pass), ``packs``
+    and ``pack_rounds`` (the pack rounds that committed, summed)."""
+    from repro_torch.kernels.skipper_match import kernel
+
+    if pack is None:
+        pack = kernel.FILTERED_THREADS
+    num_tiles, tile = u_tiles.shape
+    if pack < tile:
+        raise ValueError(f"a pack of {pack} cannot hold a tile of {tile}")
+    dev = state.device
+    u, v = u_tiles.long(), v_tiles.long()
+    valid = (u >= 0) & (u != v)
+    cu, cv = torch.where(valid, u, 0), torch.where(valid, v, 0)
+    matched = torch.zeros(u.shape, dtype=torch.bool, device=dev)
+    conflicts = torch.zeros(u.shape, dtype=torch.int32, device=dev)
+    stats = dict(survivor_lanes=0, packs=0, pack_rounds=0)
+    lag = num_tiles if lag is None else lag
+    survivors = {}  # tile -> its surviving lanes, in lane order
+    done = 0        # tiles resolved
+    while done < num_tiles:
+        for t in range(len(survivors), min(num_tiles, done + lag + 1)):
+            live = (valid[t] & (state[cu[t]] != engine.MCHD)
+                    & (state[cv[t]] != engine.MCHD))
+            survivors[t] = live.nonzero().flatten()
+        tiles, total = [done], len(survivors[done])
+        while (tiles[-1] + 1 < len(survivors)
+               and total + len(survivors[tiles[-1] + 1]) <= pack):
+            tiles.append(tiles[-1] + 1)
+            total += len(survivors[tiles[-1]])
+        stats["packs"] += 1
+        stats["survivor_lanes"] += total
+        done = tiles[-1] + 1
+        if total == 0:
+            continue
+        counts = torch.tensor([len(survivors[t]) for t in tiles], device=dev)
+        et = torch.repeat_interleave(torch.arange(len(tiles), device=dev), counts)
+        base = torch.cumsum(counts, 0) - counts  # each tile's first entry
+        b0, b1 = base[et], (base + counts)[et]
+        rows = torch.tensor(tiles, device=dev)[et]
+        lanes = torch.cat([survivors[t] for t in tiles])
+        eu, ev = cu[rows, lanes], cv[rows, lanes]
+        idx = torch.arange(total, device=dev)
+        fr = (state[eu] == engine.ACC) & (state[ev] == engine.ACC)
+        # the cell table: compact cell ids
+        uniq, cells = torch.unique(torch.cat([eu, ev]), return_inverse=True)
+        su, sv, ncell = cells[:total], cells[total:], uniq.shape[0]
+
+        def claims(active, a, b, slots):
+            cand = torch.where(active, idx, total)
+            best = torch.full((slots,), total, device=dev)
+            best = best.scatter_reduce(0, a, cand, "amin")
+            return best.scatter_reduce(0, b, cand, "amin")
+
+        # the pack's mask: first-claim rounds over its free entries
+        active, won = fr.clone(), torch.zeros_like(fr)
+        taken = torch.zeros(ncell, dtype=torch.bool, device=dev)
+        owner = torch.full((ncell,), -1, device=dev)
+        while True:
+            active &= ~taken[su] & ~taken[sv]
+            if not bool(active.any()):  # host-sync: ok — host loop
+                break
+            best = claims(active, su, sv, ncell)
+            win = active & (best[su] == idx) & (best[sv] == idx)
+            for side in (su, sv):
+                taken[side[win]] = True
+                owner[side[win]] = idx[win]
+            won |= win
+            active &= ~win
+            stats["pack_rounds"] += 1
+        # the conflicts: each tile's vector rounds among its own free lanes
+        ou, ov = owner[su], owner[sv]
+        free = fr & ~((ou >= 0) & (ou < b0)) & ~((ov >= 0) & (ov < b0))
+        uniq, pairs = torch.unique(
+            torch.cat([et * ncell + su, et * ncell + sv]), return_inverse=True)
+        pu, pv, npair = pairs[:total], pairs[total:], uniq.shape[0]
+        commit_round = torch.full((total,), vector_rounds, device=dev)
+        conf = torch.zeros(total, dtype=torch.int32, device=dev)
+        for r in range(vector_rounds):
+            best = claims(free, pu, pv, npair)
+            blocked = free & ((best[pu] != idx) | (best[pv] != idx))
+            conf += blocked.to(torch.int32)
+            commit_round[free & ~blocked] = r
+            if not bool(blocked.any()):  # host-sync: ok — host loop
+                break
+
+            def took(o):  # a commit of this tile by round r took the cell
+                return ((o >= b0) & (o < b1)
+                        & (commit_round[o.clamp(min=0)] <= r))
+
+            free = blocked & ~took(ou) & ~took(ov)
+        state[eu[won]] = engine.MCHD
+        state[ev[won]] = engine.MCHD
+        matched[rows, lanes] = won
+        conflicts[rows, lanes] = conf
+    return matched, conflicts, stats

@@ -408,6 +408,34 @@ def test_warp_barrier_is_accepted_only_by_name():
         if f.severity is Severity.ERROR]
 
 
+ATOMICS = ("\tmov.u32 %r1, %tid.x;\n\tmov.u32 %r2, smem;\n"
+           "\tshl.b32 %r3, %r1, 2;\n\tadd.s32 %r4, %r2, %r3;\n"
+           "\tatom.shared.min.u32 %r6, [%r4], %r1;\n"
+           "\tatom.shared.exch.b32 %r7, [%r4+4], 0;\n")
+
+
+@pytest.mark.parametrize("body,name,errors", [
+    (ATOMICS, "skipper_boundary_async_kernel", 0),
+    (ATOMICS, "skipper_boundary_kernel", 1),
+    # a plain load before the atomics is checked in every kernel
+    ("\tmov.u32 %r2, smem;\n" + LOAD + ATOMICS,
+     "skipper_boundary_async_kernel", 1),
+    (ATOMICS + LOAD, "skipper_boundary_async_kernel", 1),
+])
+def test_atomic_pairs_are_accepted_only_by_name(body, name, errors):
+    """Two shared atomics with no barrier between them are a RAW pair,
+    accepted only in a kernel of ``ATOMIC_ORDERED``; a plain load before or
+    after them is an ERROR there too."""
+    from repro_torch.analysis.rules.barrier import ATOMIC_ORDERED
+
+    entry = parse_ptx(_ptx(body + "\tret;\n"))["k"]
+    assert ("RAW", False) in {(k, w) for _, _, k, w in hazards(entry)}
+    found = SmemBarrier().check_kernel(_artifact(entry, name))
+    assert len([f for f in found if f.severity is Severity.ERROR]) == errors
+    info = [f for f in found if f.severity is Severity.INFO][0]
+    assert (info.data["atomic_pairs"] > 0) == (name in ATOMIC_ORDERED)
+
+
 # Asynchronous copies: a ring stage filled by a bulk copy that completes on
 # ``full``; ``empty`` is its release; ``other`` another barrier.
 ASYNC_SHARED = (".extern .shared .align 16 .b8 smem[];\n"
@@ -759,7 +787,7 @@ def test_mutant_source_includes_production_and_hashes_it():
     assert _build.ptx_path(mutations.SOURCE).suffix == ".ptx"
 
 
-@pytest.mark.parametrize("role", ["window", "boundary"])
+@pytest.mark.parametrize("role", ["window", "boundary", "row"])
 @pytest.mark.parametrize("spec", ["u8", "legacy_i32"])
 def test_tier_order_fixture_has_teeth(role, spec):
     sp = getattr(StateSpec, spec)()
@@ -852,7 +880,7 @@ def test_targets_name_every_async_window_instance():
         assert first.launch.func is kernel.window_tier_sync
     assert sum(getattr(t, "kernel", None) == kernel.WINDOW_ASYNC
                for t in by_name.values()) == 4
-    assert len(by_name) == 42  # 36 kernel instances, 6 entry points
+    assert len(by_name) == 46  # 40 kernel instances, 6 entry points
     census = by_name["skipper_match"].expect
     assert census[kernel.WINDOW_ASYNC] == 1
     assert census[kernel.WINDOW_TIER] == 0
@@ -865,6 +893,32 @@ def test_targets_name_every_async_window_instance():
             assert t.max_threads == (
                 kernel.BOUNDARY_ASYNC_MAX_THREADS
                 if t.kernel == kernel.BOUNDARY_ASYNC else kernel.MAX_THREADS)
+
+
+@pytest.mark.parametrize("vmem", ["uint8", "int32"])
+@pytest.mark.parametrize("counter", ["uint8", "int32"])
+def test_targets_name_the_filtered_instance(vmem, counter):
+    """The filtered instance of the asynchronous global tier
+    (``kInstanceFiltered``, template argument 2) is a kernel target under
+    each width pair, launched as the raw stream launches it: through
+    ``boundary_tier(instance="filtered")`` over one state row (role "row",
+    whose tier-order fixture is one row of (0, 0) tiles), in blocks of
+    ``FILTERED_THREADS``."""
+    from repro_torch.analysis import targets
+
+    t = {t.name: t for t in targets.get_targets()}[
+        f"boundary_async[{vmem},{counter},filtered]"]
+    assert t.kernel == kernel.BOUNDARY_ASYNC
+    assert t.template == (targets.CPP_TYPES[vmem], targets.CPP_TYPES[counter],
+                          "2")
+    assert t.role == "row"
+    assert t.threads == t.max_threads == kernel.FILTERED_THREADS
+    assert t.launch.func is kernel.boundary_tier
+    assert t.launch.keywords["instance"] == kernel.FILTERED
+    x = fixture("row", t.spec, torch.device("cpu"))
+    assert x["state"].shape == (1, targets.WINDOW)
+    assert not x["blk_u"].any() and not x["blk_v"].any()
+    assert int(x["v"].max()) < targets.WINDOW
 
 
 def test_targets_name_the_three_term_kernel_and_its_pre_pass():
@@ -950,7 +1004,7 @@ def test_slab_bytes_model(spec):
 
 def test_skipper_entry_target_expects_one_global_tier_launch():
     """The analyzer's ``skipper`` entry target: the asynchronous global
-    tier once, every other kernel never; 42 targets in all, the two
+    tier once, every other kernel never; 46 targets in all, the two
     distributed entries among them."""
     from repro_torch.analysis import targets
     from repro_torch.kernels.flash_attention import kernel as flash
@@ -961,7 +1015,7 @@ def test_skipper_entry_target_expects_one_global_tier_launch():
     others = set(kernel.launch_counts()) | set(flash.launch_counts())
     assert {k for k, n in t.expect.items() if n == 0} == (
         others - {kernel.BOUNDARY_ASYNC})
-    assert len(targets.target_names()) == 42
+    assert len(targets.target_names()) == 46
 
 
 @pytest.mark.parametrize("fault", ["nvcc fails", "entry missing"])

@@ -1006,6 +1006,250 @@ def test_boundary_tier_owns_alignment(cuda_device, monkeypatch):
                              instance="staged")
 
 
+# ---- the global tier's filtered instance on the raw stream -----------------
+
+def _filter_tiles_needed(device):
+    """The fewest tiles for which ``tiles_on_card`` takes the filtered
+    instance on this card."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return kernel.FILTERED_TILES_PER_SM * sms
+
+
+def _filter_stream(case, tile, tiles, seed=1):
+    """Raw-stream tiles (``stream_tiles``, dispersed) of about ``tiles``
+    tiles of ``tile`` lanes: ``kron`` an RMAT graph of the edges that
+    takes, ``uniform`` uniform endpoints over four times as many vertices
+    as lanes a tile, ``dense`` 64 vertices (every lane past the first
+    tiles dies), ``matching`` disjoint edges (every lane is free), each
+    with self-loops and padding."""
+    from repro_torch.core.skipper import stream_tiles
+    from repro_torch.interop import edges_from_arrays
+
+    rng = np.random.default_rng(seed)
+    m = tile * tiles - tile // 3
+    if case == "kron":
+        scale = max(6, int(np.log2(max(m // 8, 64))))
+        g = rmat_graph(scale, max(1, m >> scale), seed=seed)
+        u, v, n = g.u.numpy()[:m], g.v.numpy()[:m], g.num_vertices
+    elif case == "matching":
+        n = 2 * m
+        u, v = np.arange(0, n, 2), np.arange(1, n, 2)
+        perm = rng.permutation(m)
+        u, v = u[perm], v[perm]
+    else:
+        n = 64 if case == "dense" else 4 * tile * 8
+        u, v = rng.integers(0, n, m), rng.integers(0, n, m)
+    if case != "matching":
+        v = np.where(rng.random(len(u)) < 0.05, u, v)
+    g = edges_from_arrays(u, v, n)
+    ut, vt = stream_tiles(g, tile)
+    return ut, vt, n
+
+
+def _filtered_vs_plain(ut, vt, n, spec, vector_rounds, device, row=None):
+    """The filtered instance, named on ``boundary_tier`` over one row,
+    against ``ref_skipper`` on the CPU from the same row: state, mask,
+    conflicts. Returns the card's outputs."""
+    s = getattr(StateSpec, spec)()
+    if row is None:
+        row = torch.zeros(n, dtype=s.at_rest_dtype)
+    state = row.clone()
+    matched, conflicts = ref.ref_skipper(state, ut, vt,
+                                         vector_rounds=vector_rounds)
+    card = row.to(s.vmem_dtype).to(device).reshape(1, n)
+    pairs = torch.zeros(ut.shape[0], dtype=torch.int32, device=device)
+    kernel.reset_launch_counts()
+    got = kernel.boundary_tier(card, pairs, pairs, ut.to(device),
+                               vt.to(device), vector_rounds=vector_rounds,
+                               spec=s, instance=kernel.FILTERED)
+    torch.cuda.synchronize()
+    assert kernel.launch_counts()[kernel.BOUNDARY_ASYNC] == 1
+    _same((card[0].cpu().to(s.at_rest_dtype), state),
+          (got[0].cpu() > 0, matched),
+          (got[1].cpu().to(torch.int32), conflicts))
+    return card, got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", SPECS)
+@pytest.mark.parametrize("vector_rounds", [0, 1, 3])
+@pytest.mark.parametrize("tile", [32, 65, 260, 512, 516, 896])
+@pytest.mark.parametrize("case", ["kron", "uniform", "dense"])
+def test_filtered_instance_equals_plain(cuda_device, spec, vector_rounds,
+                                        tile, case):
+    """The filtered instance bit for bit against ``ref_skipper``: kron-like,
+    uniform and dense streams, tile widths whose last warp is short and the
+    widest the asynchronous tier takes, every vector_rounds kind (none,
+    one, several), both state and counter widths."""
+    ut, vt, n = _filter_stream(case, tile, 3000 // max(1, tile // 64))
+    _filtered_vs_plain(ut, vt, n, spec, vector_rounds, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", SPECS)
+@pytest.mark.parametrize("tile", [64, 512])
+def test_filtered_instance_all_free_and_all_dead(cuda_device, spec, tile):
+    """A stream whose every lane is free (disjoint edges: each pack is
+    whole tiles of free lanes, nothing dies), and the same stream over a
+    row already all MCHD (every lane dies in the filter)."""
+    ut, vt, n = _filter_stream("matching", tile, 2048 * 64 // tile)
+    _filtered_vs_plain(ut, vt, n, spec, 1, cuda_device)
+    full = torch.full((n,), 2, dtype=getattr(StateSpec, spec)().at_rest_dtype)
+    card, (m, c) = _filtered_vs_plain(ut, vt, n, spec, 1, cuda_device, full)
+    assert not bool((m > 0).any()) and not bool((c > 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["kron", "uniform"])
+def test_filtered_instance_is_the_same_every_launch(cuda_device, case):
+    """Twenty back-to-back launches on one input: the filter's snapshots
+    and packs move with timing, the outputs do not."""
+    ut, vt, n = _filter_stream(case, 512, 4096, seed=9)
+    ut, vt = ut.to(cuda_device), vt.to(cuda_device)
+    pairs = torch.zeros(ut.shape[0], dtype=torch.int32, device=cuda_device)
+    outs = []
+    for _ in range(20):
+        row = torch.zeros((1, n), dtype=torch.uint8, device=cuda_device)
+        m, c = kernel.boundary_tier(row, pairs, pairs, ut, vt,
+                                    instance=kernel.FILTERED)
+        outs.append((row, m, c))
+    torch.cuda.synchronize()
+    for got in outs[1:]:
+        _same(*zip(got, outs[0]))
+    state = torch.zeros(n, dtype=torch.uint8)
+    matched, conflicts = ref.ref_skipper(state, ut.cpu(), vt.cpu())
+    _same((outs[0][0][0].cpu(), state), (outs[0][1].cpu() > 0, matched),
+          (outs[0][2].cpu().to(torch.int32), conflicts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", SPECS)
+@pytest.mark.parametrize("side", [-1, 0])
+def test_skipper_takes_the_filter_from_its_tile_threshold(
+        cuda_device, monkeypatch, spec, side):
+    """``skipper`` one tile below ``FILTERED_TILES_PER_SM`` tiles a SM
+    launches a single-block instance (the one the row's shape picks), and
+    from there the filtered one (the C entry's instance code 2);
+    one launch of ``skipper_boundary_async_kernel`` a call either way, and
+    the result bit for bit the plain version's."""
+    from repro_torch.core import skipper
+    from repro_torch.interop import edges_from_arrays
+
+    tile = 64
+    tiles = _filter_tiles_needed(cuda_device) + side
+    assert kernel.takes_filtered(tiles, tile, cuda_device) == (side == 0)
+    rng = np.random.default_rng(4)
+    n, m = 5000, tiles * tile
+    g = edges_from_arrays(rng.integers(0, n, m), rng.integers(0, n, m), n)
+    lib, codes = kernel._library(), []
+
+    class Spy:  # records the instance code of each global-tier launch
+        def __getattr__(self, name):
+            fn = getattr(lib, name)
+            if not name.startswith("skipper_boundary_async_"):
+                return fn
+
+            def launch(*args):
+                codes.append(args[12])
+                return fn(*args)
+            return launch
+
+    kw = dict(tile_size=tile, with_conflicts=True, vector_rounds=1,
+              spec=getattr(StateSpec, spec)())
+    kernel.reset_launch_counts()
+    monkeypatch.setattr(kernel, "_library", Spy)
+    got = skipper(g, device=cuda_device, **kw)
+    torch.cuda.synchronize()
+    assert len(codes) == 1 and (codes[0] == 2) == (side == 0)
+    assert kernel.launch_counts()[kernel.BOUNDARY_ASYNC] == 1
+    _same_match(got, skipper(g, device="cpu", **kw))
+
+
+@pytest.mark.cuda
+def test_short_streams_and_profiles_keep_the_single_block(cuda_device):
+    """The callers below the threshold keep today's single-block instance:
+    the engine's slab pass (32 tiles), and a ``profile=`` request, which
+    names the device instance; ``takes_filtered`` is false off the card, for
+    tiles over 896 lanes and below the threshold."""
+    from repro_torch.core import engine
+
+    need = _filter_tiles_needed(cuda_device)
+    assert not kernel.takes_filtered(need, 1024, cuda_device)
+    assert not kernel.takes_filtered(need - 1, 512, cuda_device)
+    assert not kernel.takes_filtered(10 * need, 512, "cpu")
+    assert kernel.takes_filtered(need, 896, cuda_device)
+    rng = np.random.default_rng(2)
+    n, tile = 4096, 256
+    u = torch.from_numpy(rng.integers(0, n, 32 * tile).astype(np.int32))
+    v = torch.from_numpy(rng.integers(0, n, 32 * tile).astype(np.int32))
+    state = torch.zeros(n, dtype=torch.uint8, device=cuda_device)
+    kernel.reset_launch_counts()
+    engine.stream_pass(state, u.to(cuda_device), v.to(cuda_device), n=n,
+                       vector_rounds=1, tile_size=tile)
+    assert kernel.launch_counts()[kernel.BOUNDARY_ASYNC] == 1
+    with pytest.raises(ValueError, match="filtered"):
+        row = torch.zeros((1, n), dtype=torch.uint8, device=cuda_device)
+        pairs = torch.zeros(32, dtype=torch.int32, device=cuda_device)
+        prof = torch.zeros(len(kernel.PROFILE_FIELDS), dtype=torch.int64,
+                           device=cuda_device)
+        kernel.boundary_tier(row, pairs, pairs,
+                             u.to(cuda_device).reshape(32, tile),
+                             v.to(cuda_device).reshape(32, tile),
+                             instance=kernel.FILTERED, profile=prof)
+
+
+@pytest.mark.cuda
+def test_filtered_geometry_comes_from_the_source(cuda_device):
+    """The wrapper's block and lag (the CPU twin's defaults) are the CUDA
+    source's, its shared memory and scratch come from the source's own
+    functions, and the C entry refuses a scratch one word short."""
+    from repro_torch.kernels import _build
+
+    lib = kernel._library()
+    assert lib.skipper_filtered_threads() == kernel.FILTERED_THREADS
+    assert lib.skipper_filtered_lag() == kernel.FILTERED_LAG
+    assert kernel.filtered_smem_bytes() <= _build.MAX_SMEM_BYTES
+    tile = 64
+    words = kernel.filtered_scratch_words(tile)
+    assert words > 2 * kernel.FILTERED_LAG * tile
+    ut, vt, n = _filter_stream("uniform", tile, 8)
+    ut, vt = ut.to(cuda_device), vt.to(cuda_device)
+    row = torch.zeros((1, n), dtype=torch.uint8, device=cuda_device)
+    out = torch.empty(ut.shape, dtype=torch.uint8, device=cuda_device)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    for given, want in ((words - 1, 1), (words, 0)):
+        scratch = torch.empty((given,), dtype=torch.int32, device=cuda_device)
+        err = lib.skipper_boundary_async_uint8_uint8(
+            None, None, ut.data_ptr(), vt.data_ptr(), row.data_ptr(),
+            out.data_ptr(), out.data_ptr(), ut.shape[0], tile, n, 1, 1, 2,
+            kernel.filtered_smem_bytes(), None, scratch.data_ptr(), given,
+            None, stream)
+        torch.cuda.synchronize()
+        assert err == want  # 1: cudaErrorInvalidValue
+
+
+@pytest.mark.cuda
+def test_skipper_counts_its_survivors_only_under_a_profiler(cuda_device):
+    """``skipper.survivor_lanes`` exists under a profiler, at most the
+    valid lanes (``skipper.edges``) and more than none; outside a profiler
+    nothing counts it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tracing
+    from repro_torch.core import skipper
+
+    g = rmat_graph(16, 16, seed=3)
+    assert kernel.takes_filtered(-(-g.num_edges // 512), 512, cuda_device)
+    tracing.reset()
+    skipper(g, device=cuda_device)
+    assert "skipper.survivor_lanes" not in tracing.counters()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        skipper(g, device=cuda_device)
+    got = tracing.counters()
+    assert 0 < got["skipper.survivor_lanes"] <= got["skipper.edges"]
+    tracing.reset()
+
+
 @pytest.mark.cuda
 def test_skipper_defaults_to_the_card(cuda_device):
     from repro_torch.core import skipper
@@ -1162,13 +1406,14 @@ def test_smoke_serve_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_analyzer_clean_on_built_kernels(cuda_device):
-    """Every template instance of the three kernels and every entry target
-    analyzes to no ERROR, and so does src/repro_torch."""
+    """Every template instance of the matcher's and the attention's
+    kernels (the global tier's filtered instance among them) and every
+    entry target analyzes to no ERROR, and so does src/repro_torch."""
     from repro_torch.analysis import run_analysis
 
     report = run_analysis()
     assert report.clean, report.render()
-    assert len(report.targets_analyzed) == 42
+    assert len(report.targets_analyzed) == 46
 
 
 @pytest.mark.cuda
@@ -1202,6 +1447,50 @@ def test_analyzer_catches_each_dropped_proxy_fence(cuda_device, tmp_path):
     assert proxy(copies[0]) == {kernel.BOUNDARY_ASYNC}
     assert proxy(copies[1]) == {kernel.BOUNDARY_ASYNC}
     assert proxy(copies[2]) == {kernel.WINDOW_ASYNC}
+
+
+@pytest.mark.cuda
+def test_analyzer_checks_the_filtered_instance_beside_its_atomics(
+        cuda_device, tmp_path):
+    """``ATOMIC_ORDERED`` accepts the filtered instance's pairs of shared
+    atomics and nothing else: built without the barrier between its reads
+    of the pack's bases and its table inserts, or the one between its reads
+    of the claims and its commits, that instance gets an ERROR from
+    ``smem-barrier``; built as it is, none."""
+    import types
+
+    from repro_torch.analysis.build import demangle, parse_ptx
+    from repro_torch.analysis.report import Severity
+    from repro_torch.analysis.rules.barrier import SmemBarrier
+    from repro_torch.kernels import _build
+
+    lines = kernel.SOURCE.read_text().splitlines()
+    guards = ("every read of the bases precedes the table's inserts",
+              "every read of the claims precedes the commits")
+    copies = []
+    for i, text in enumerate(guards):
+        at = [n for n, ln in enumerate(lines) if text in ln]
+        assert len(at) == 1 and "__syncthreads();" in lines[at[0]]
+        path = tmp_path / f"skipper_match_nobarrier{i}.cu"
+        path.write_text("\n".join(lines[:at[0]] + lines[at[0] + 1:]) + "\n")
+        copies.append(path)
+    built = _build.build(kernel.SOURCE, *copies, ptx=True)
+
+    def errors(path):
+        entries = parse_ptx(Path(built[str(path)]["path"]).read_text())
+        out = {}
+        for m, e in entries.items():
+            d = demangle(m)
+            if d.name == kernel.BOUNDARY_ASYNC and d.template[-1] == "2":
+                art = types.SimpleNamespace(ptx=e, mangled=m, name=str(d))
+                out[d.template] = [f for f in SmemBarrier().check_kernel(art)
+                                   if f.severity is Severity.ERROR]
+        assert len(out) == 4  # the (state, counter) widths
+        return out
+
+    assert not any(errors(kernel.SOURCE).values())
+    for path in copies:
+        assert all(errors(path).values())
 
 
 @pytest.mark.cuda

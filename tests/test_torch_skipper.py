@@ -234,6 +234,29 @@ def test_one_row_global_tier_equals_ref_skipper(gname, spec):
     assert set(kernel.launch_counts().values()) == {0}
 
 
+def test_one_row_global_tier_counts_its_in_order_lanes_when_traced():
+    """Off the card ``tiles_on_card`` walks every tile in order: under a
+    profiler the counter it is given reads every valid lane, and nothing
+    counts it outside one; the filtered instance is a card's alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tracing
+    from repro_torch.core.skipper import stream_tiles
+
+    _, pg = _pair(ZOO["rmat"]())
+    ut, vt = stream_tiles(pg, 32)
+    assert not kernel.takes_filtered(10 ** 6, 32, "cpu")
+    tracing.reset()
+    row = torch.zeros(pg.num_vertices, dtype=torch.uint8)
+    kernel.tiles_on_card(row, ut, vt, counter="test.lanes")
+    assert "test.lanes" not in tracing.counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        kernel.tiles_on_card(row.zero_(), ut, vt, counter="test.lanes")
+    assert tracing.counters()["test.lanes"] == int(
+        ((ut >= 0) & (ut != vt)).sum())
+    tracing.reset()
+
+
 # ------------------------------------------------------------ graph helpers
 
 @pytest.mark.parametrize("multiple", [1, 7, 32, 512])
